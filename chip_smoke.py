@@ -10,16 +10,26 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
 1. device: card name and power limit, build of ``csrc/*.cu``, native host
    library present;
 2. each kernel against its plain PyTorch version on the card, byte for byte
-   (tolerance 0: the spec is integer), for every sampling mode, both wires
-   and both kernels at M=16,384 and at an odd M=1,001 with extreme blocks;
-   the RGB kernel also against the NumPy oracle on real encoded images;
-3. the main path: ``python -m pim_jpeg_decoder_tpu_torch`` (``cli.main``)
-   on an ImageNet-val-like corpus, every BMP equal to the oracle raster,
-   both kernels launched and no plain-version call on the card, the same
-   BMPs with ``--transport rgb`` and with banded launches, and per-file
-   failures for a corrupt and a missing file;
-4. kernel and plain-version times with CUDA events at M=16,384 4:2:0, and
-   the engine's end-to-end MP/s on the corpus.
+   (tolerance 0: the decode spec is integer, and the epilogue rounds the
+   same float32 values once): the full-scale RGB, YCbCr and scaled RGB
+   (scale 2/4/8) decode kernels for every sampling mode, both wires, at
+   M=16,384 and at an odd M=1,001 with extreme blocks; the RGB kernels also
+   against the NumPy oracle (full and scaled) on encoded images; the raster
+   epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped;
+3. the main paths, each with the launch counts set to 0 just before it and
+   read just after: ``cli.main`` on an ImageNet-val-like corpus (every BMP
+   equal to the oracle raster, the same BMPs with ``--transport rgb`` and
+   with banded launches, per-file failures for a corrupt and a missing
+   file) and with ``--scale 2`` (every BMP equal to the scaled oracle); the
+   device-resident batch path, ``iter_decode_batches`` over 4 batches of
+   B=256 500x375 4:2:0 images at scale 1 and 2, as uint8 and as bfloat16
+   normalised with the ImageNet statistics, every batch equal to the
+   oracle rasters; ``decode_batch_crops`` of 224x224 random crops from
+   4:2:0 images of three sizes, equal to slices of the oracle rasters;
+4. kernel and plain-version times with CUDA events (10 rotating inputs,
+   past the 50 MB L2), the engine's end-to-end MP/s on the corpus, the
+   batch path's images/s and MP/s, and the device busy share of one
+   traced run of each.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -43,11 +53,19 @@ import time
 import numpy as np
 
 SEED = 20261016
-KERNEL_SOURCE = "pim_jpeg_decoder_tpu_torch/csrc/decode_kernel.cu"
-REPLACES = {
-    "rgb": "pim_jpeg_decoder_tpu/ops/decode_kernel.py:178",
-    "ycbcr": "pim_jpeg_decoder_tpu/ops/decode_kernel.py:296",
+# Launch-counter name -> (source, the TPU kernel or XLA fusion it replaces).
+KERNELS = {
+    "rgb": ("pim_jpeg_decoder_tpu_torch/csrc/decode_kernel.cu",
+            "pim_jpeg_decoder_tpu/ops/decode_kernel.py:178"),
+    "ycbcr": ("pim_jpeg_decoder_tpu_torch/csrc/decode_kernel.cu",
+              "pim_jpeg_decoder_tpu/ops/decode_kernel.py:296"),
+    "rgb_scaled": ("pim_jpeg_decoder_tpu_torch/csrc/decode_kernel.cu",
+                   "pim_jpeg_decoder_tpu/ops/decode_kernel.py:268"),
+    "raster": ("pim_jpeg_decoder_tpu_torch/csrc/raster_epilogue.cu",
+               "pim_jpeg_decoder_tpu/models/input_pipeline.py:93"),
 }
+IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
+                     std=(58.395, 57.12, 57.375))
 
 
 def fail(msg: str) -> None:
@@ -122,17 +140,32 @@ def mcu_raster(mode, raw: np.ndarray) -> np.ndarray:
     return out
 
 
+def scaled_oracle(data: bytes, scale: int) -> np.ndarray:
+    """``oracle.decoder.decode_scaled_oracle`` with the native entropy
+    decoder in place of the pure-Python one (same coefficients, faster)."""
+    from unittest import mock
+
+    from pim_jpeg_decoder_tpu.native import decode_scan_native
+    from pim_jpeg_decoder_tpu.oracle import decoder
+
+    with mock.patch.object(decoder, "decode_scan", decode_scan_native):
+        return decoder.decode_scaled_oracle(data, scale)
+
+
 def phase_kernels(torch, dev, oracle_images) -> dict:
     from pim_jpeg_decoder_tpu.ops import specs as S
     from pim_jpeg_decoder_tpu.oracle.decoder import mcu_rgb_from_coeffs
-    from pim_jpeg_decoder_tpu_torch.models.pipeline import build_qpool
+    from pim_jpeg_decoder_tpu_torch.models.pipeline import (
+        assemble_raster_raw_scaled, build_qpool)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         coeffs_to_device, decode_mcus, decode_mcus_reference,
         qpool_to_device)
 
     rng = np.random.default_rng(SEED)
-    max_err = {"rgb": 0, "ycbcr": 0}
+    max_err = {name: 0 for name in KERNELS}
     cases = 0
+    variants = (("rgb", 1), ("ycbcr", 1), ("rgb_scaled", 2),
+                ("rgb_scaled", 4), ("rgb_scaled", 8))
     for key in sorted(S.MODES):
         mode = S.mode_for(key)
         for wire in (np.int16, np.int8):
@@ -142,20 +175,20 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                 x = coeffs_to_device(coeffs, dev)
                 qi = torch.from_numpy(qidx).to(dev)
                 qp = qpool_to_device(qpool, dev)
-                for name in ("rgb", "ycbcr"):
-                    yc = name == "ycbcr"
-                    got = decode_mcus(x, qi, qp, mode, raw=True, ycbcr=yc)
-                    want = decode_mcus_reference(x, qi, qp, mode, raw=True,
-                                                 ycbcr=yc)
+                for name, scale in variants:
+                    kw = dict(raw=True, ycbcr=name == "ycbcr", scale=scale)
+                    got = decode_mcus(x, qi, qp, mode, **kw)
+                    want = decode_mcus_reference(x, qi, qp, mode, **kw)
                     torch.cuda.synchronize()
                     err = int((got.int() - want.int()).abs().max())
                     max_err[name] = max(max_err[name], err)
                     if got.shape != want.shape or err:
                         fail(f"{name} kernel != plain version: {mode.name} "
-                             f"{np.dtype(wire).name} M={m} max|err|={err}")
+                             f"{np.dtype(wire).name} M={m} scale {scale} "
+                             f"max|err|={err}")
                     cases += 1
     n_mcus = 0
-    for header, coeffs in oracle_images:
+    for header, coeffs, data in oracle_images:
         mode = S.mode_for(header.mode_key)
         x = coeffs_to_device(coeffs, dev)
         qi = torch.zeros(header.num_mcus, dtype=torch.int32, device=dev)
@@ -164,12 +197,70 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
         if not np.array_equal(mcu_raster(mode, raw),
                               mcu_rgb_from_coeffs(header, coeffs)):
             fail(f"rgb kernel != oracle.mcu_rgb_from_coeffs on {mode.name}")
+        for scale in (2, 4, 8):
+            raw = decode_mcus(x, qi, qp, mode, raw=True,
+                              scale=scale).cpu().numpy()
+            if not np.array_equal(
+                    assemble_raster_raw_scaled(header, raw, scale),
+                    scaled_oracle(data, scale)):
+                fail(f"rgb_scaled kernel != decode_scaled_oracle on "
+                     f"{mode.name} at scale {scale}")
         n_mcus += header.num_mcus
-    print(f"[2 kernels] {cases} kernel-vs-plain cases byte-identical on the "
-          f"card (5 modes x i16/i8 x M=16384/1001-with-extremes x rgb/ycbcr, "
-          f"Q=16; tolerance 0); rgb kernel == NumPy oracle on {n_mcus} MCUs "
-          f"of {len(oracle_images)} encoded images", flush=True)
+    n_epi = epilogue_cases(torch, dev, rng, max_err)
+    print(f"[2 kernels] {cases} decode kernel-vs-plain cases byte-identical "
+          f"on the card (5 modes x i16/i8 x M=16384/1001-with-extremes x "
+          f"rgb/ycbcr/scaled 2,4,8; Q=16; tolerance 0); rgb and rgb_scaled "
+          f"(2/4/8) == NumPy oracle on {n_mcus} MCUs of "
+          f"{len(oracle_images)} encoded images; {n_epi} raster-epilogue "
+          f"cases byte-identical (5 modes x scale 1/2/4/8 x u8/f32/bf16/f16 "
+          f"x full/cropped)", flush=True)
     return max_err
+
+
+def epilogue_cases(torch, dev, rng, max_err) -> int:
+    """raster_epilogue against its plain version: B=5 images of 13x17
+    MCUs (the last MCU row and column cut by the output size), and crops
+    with random origins, some out of range (clamped as dynamic_slice
+    clamps)."""
+    from pim_jpeg_decoder_tpu.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        raster_epilogue, raster_epilogue_reference)
+
+    b, gh, gw = 5, 13, 17
+    cases = 0
+    for key in sorted(S.MODES):
+        mode = S.mode_for(key)
+        for scale in (1, 2, 4, 8):
+            n = 8 // scale
+            raw = torch.from_numpy(rng.integers(
+                0, 256, (3, mode.luma_slots, n * n, b * gh * gw + 3),
+                dtype=np.uint8)).to(dev)
+            grid_h, grid_w = gh * mode.v * n, gw * mode.h * n
+            crop_h, crop_w = grid_h // 2 + 1, grid_w // 3 + 1
+            offsets = [torch.from_numpy(rng.integers(
+                -2, g - c + 3, b).astype(np.int32)).to(dev)
+                for g, c in ((grid_h, crop_h), (grid_w, crop_w))]
+            for dtype in (None, torch.float32, torch.bfloat16,
+                          torch.float16):
+                norm = (_norm_static(dtype, **IMAGENET_NORM) if dtype
+                        else None)
+                for args in ((grid_h - 3, grid_w - 5),
+                             (crop_h, crop_w, *offsets)):
+                    got = raster_epilogue(raw, mode, scale, b, gh, gw, *args,
+                                          norm=norm)
+                    want = raster_epilogue_reference(raw, mode, scale, b, gh,
+                                                     gw, *args, norm=norm)
+                    torch.cuda.synchronize()
+                    same = got.shape == want.shape and torch.equal(got, want)
+                    if not same:
+                        err = float((got.float() - want.float()).abs().max())
+                        fail(f"raster epilogue != plain version: "
+                             f"{mode.name} scale {scale} {dtype} "
+                             f"{'crop' if len(args) > 2 else 'full'} "
+                             f"max|err|={err}")
+                    cases += 1
+    return cases
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -196,6 +287,11 @@ CORPUS = (
     (1, 1536, 2048, dict(sampling="4:2:0", quality=75)),
     (1, 375, 500, dict(sampling="4:2:0", quality=75, restart_interval=8)),
 )
+
+
+def corpus_kwargs():
+    """The encode options of each corpus file, in build_corpus order."""
+    return [kw for count, _, _, kw in CORPUS for _ in range(count)]
 
 
 def build_corpus(root: str):
@@ -246,7 +342,7 @@ def env(name: str, value: str):
             os.environ[name] = old
 
 
-def phase_slice(dev, paths, oracles) -> dict:
+def phase_slice(dev, paths, oracles, scaled_oracles) -> dict:
     from pim_jpeg_decoder_tpu.io.bmp import read_bmp
     from pim_jpeg_decoder_tpu_torch.models.pipeline import output_path
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
@@ -305,6 +401,115 @@ def phase_slice(dev, paths, oracles) -> dict:
           f"plain_on_cuda={counts['plain_on_cuda']}; --transport rgb and "
           f"4096-MCU bands byte-identical; corrupt+missing -> exit 1, "
           f"others decoded", flush=True)
+
+    reset_launch_counts()
+    rc = run_cli([*paths, "--scale", "2"])
+    scaled_counts = launch_counts()
+    if rc != 0:
+        fail(f"cli.main --scale 2 exited {rc} on the corpus")
+    for p in paths:
+        if not np.array_equal(read_bmp(output_path(p)), scaled_oracles[p]):
+            fail(f"--scale 2 BMP of {os.path.basename(p)} != scaled oracle")
+    if scaled_counts["rgb_scaled"] < 1 or scaled_counts["plain_on_cuda"]:
+        fail(f"cli.main --scale 2 did not go through the scaled kernel "
+             f"alone: {scaled_counts}")
+    print(f"[3 slice] cli.main --scale 2 on {len(paths)} JPEGs: exit 0, "
+          f"every BMP == decode_scaled_oracle; launches rgb_scaled="
+          f"{scaled_counts['rgb_scaled']} plain_on_cuda="
+          f"{scaled_counts['plain_on_cuda']}", flush=True)
+    return counts
+
+
+def imagenet_batches(rng, blobs, batches: int = 4, size: int = 256):
+    """``batches`` lists of ``size`` indices into ``blobs``: each blob
+    size / len(blobs) times, in a seeded order."""
+    return [rng.permutation(np.arange(size) % len(blobs))
+            for _ in range(batches)]
+
+
+BATCH_CONFIGS = ((1, None), (1, "bfloat16"), (2, None), (2, "bfloat16"))
+
+
+def batch_options(torch, dtype_name):
+    """The batch APIs' keyword options for one configuration, and the
+    normalisation they ask for (None: uint8)."""
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
+
+    if dtype_name is None:
+        return {}, None
+    kw = dict(dtype=getattr(torch, dtype_name), **IMAGENET_NORM)
+    return kw, _norm_static(**kw)
+
+
+def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
+    """The device-resident batch path at the ImageNet input size, then a
+    crop batch; each equal to the oracle (bfloat16: the oracle through the
+    plain normalisation).  Returns the launch counts of the batch run."""
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
+        decode_batch_crops, iter_decode_batches)
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        apply_norm, launch_counts, reset_launch_counts)
+
+    rng = np.random.default_rng(SEED + 3)
+    order = imagenet_batches(rng, blobs)
+    expected = {s: torch.from_numpy(np.stack(refs[s])).to(dev)
+                for s in (1, 2)}
+    n_images = 0
+    reset_launch_counts()
+    for scale, dtype_name in BATCH_CONFIGS:
+        kw, norm = batch_options(torch, dtype_name)
+        stream = iter_decode_batches(([blobs[i] for i in idx]
+                                      for idx in order), scale=scale,
+                                     device=dev, **kw)
+        for idx, (out, headers) in zip(order, stream):
+            want = apply_norm(expected[scale][torch.from_numpy(idx).to(dev)],
+                              norm)
+            if (out.device.type != "cuda" or out.shape != want.shape
+                    or not torch.equal(out, want)):
+                fail(f"batch (scale {scale}, {dtype_name or 'uint8'}) != "
+                     f"oracle: {tuple(out.shape)} {out.dtype} on "
+                     f"{out.device}")
+            n_images += len(headers)
+    counts = launch_counts()
+    if (counts["rgb"] < 1 or counts["rgb_scaled"] < 1 or counts["raster"] < 1
+            or counts["plain_on_cuda"]):
+        fail(f"batch path did not go through rgb, rgb_scaled and raster "
+             f"alone: {counts}")
+    print(f"[3 slice] iter_decode_batches: {len(order)} batches x B=256 "
+          f"500x375 4:2:0 at scale 1/2 x uint8/bfloat16-normalised "
+          f"({n_images} images): every batch == oracle rasters; launches "
+          f"rgb={counts['rgb']} rgb_scaled={counts['rgb_scaled']} "
+          f"raster={counts['raster']} plain_on_cuda="
+          f"{counts['plain_on_cuda']}", flush=True)
+
+    crop_blobs, crop_refs = crop_set
+    reset_launch_counts()
+    for scale, dtype_name in ((1, None), (2, "bfloat16")):
+        boxes = [(scale * int(rng.integers(0, (r.shape[0] - 224) // scale
+                                           + 1)),
+                  scale * int(rng.integers(0, (r.shape[1] - 224) // scale
+                                           + 1)))
+                 for r in crop_refs[1]]
+        kw, norm = batch_options(torch, dtype_name)
+        out, _ = decode_batch_crops(crop_blobs, boxes, (224, 224),
+                                    scale=scale, device=dev, **kw)
+        c = 224 // scale
+        want = torch.from_numpy(np.stack([
+            r[y0 // scale:y0 // scale + c, x0 // scale:x0 // scale + c]
+            for r, (y0, x0) in zip(crop_refs[scale], boxes)])).to(dev)
+        if not torch.equal(out, apply_norm(want, norm)):
+            fail(f"decode_batch_crops (scale {scale}) != oracle slices")
+    crop_counts = launch_counts()
+    if crop_counts["raster"] < 1 or crop_counts["plain_on_cuda"]:
+        fail(f"crop batch did not go through the kernels alone: "
+             f"{crop_counts}")
+    sizes = sorted({r.shape[:2] for r in crop_refs[1]})
+    print(f"[3 slice] decode_batch_crops: {len(crop_blobs)} 4:2:0 images of "
+          f"sizes {sizes}, 224x224 random crops at scale 1 (uint8) and 2 "
+          f"(bfloat16-normalised): == oracle slices; launches "
+          f"rgb={crop_counts['rgb']} rgb_scaled={crop_counts['rgb_scaled']} "
+          f"raster={crop_counts['raster']} plain_on_cuda="
+          f"{crop_counts['plain_on_cuda']}", flush=True)
     return counts
 
 
@@ -353,7 +558,8 @@ def phase_times(torch, dev, card: str, paths) -> dict:
             p_ms = time_launches(torch, lambda b: decode_mcus_reference(
                 *b, mode, raw=True, ycbcr=yc), bufs, runs=20)
             wname = np.dtype(wire).name
-            times[name, wname] = (k_ms, p_ms)
+            if wire is np.int8:
+                times[name] = (k_ms, p_ms)
             mb_out = (mode.g if yc else 3 * mode.luma_slots) * 64 * m / 1e6
             print(f"[4 times] {name} kernel 4:2:0 M={m} {wname} wire: "
                   f"{k_ms * 1e3:.1f} us/launch ({(mb_in + mb_out) / k_ms:.0f}"
@@ -382,20 +588,131 @@ def phase_times(torch, dev, card: str, paths) -> dict:
           f"{statistics.median(mps):.1f}); host stage seconds of the last "
           f"run: " + ", ".join(f"{k} {v[0]:.3f}" for k, v in stages.items())
           + f" | {card}", flush=True)
-    print(f"[4 times] {device_busy(torch, engine, paths)} | {card}",
-          flush=True)
+    busy = device_busy(torch, lambda: engine.decode_paths(paths, write=True),
+                       "engine run")
+    print(f"[4 times] {busy} | {card}", flush=True)
     return times
 
 
-def device_busy(torch, engine, paths) -> str:
-    """One traced engine run: the union of device activity (kernels and
+def batch_inputs(torch, dev, blobs, rng, count: int = 10):
+    """``count`` B=256 batches on the card (int8 wire, 196,608 MCUs, 75 MB
+    each), and the staging of the last: two staged by the batch path's own
+    host stage, the others rotations of those by whole images on the card
+    (the same coefficients at other addresses, so each launch reads
+    device memory, not the L2)."""
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _host_stage
+
+    staged_bufs = []
+    for idx in imagenet_batches(rng, blobs, batches=2):
+        staged = _host_stage([blobs[i] for i in idx], 8, "auto",
+                             "chip_smoke", 1, False)
+        staged_bufs.append([t.to(dev) for t in staged.arrays])
+    per_image = staged.headers[0].num_mcus
+    bufs = []
+    for i in range(count):
+        coeffs, qidx, qpool = staged_bufs[i % 2]
+        shift = (i // 2) * 37 * per_image
+        bufs.append((torch.roll(coeffs, shift, 0), torch.roll(qidx, shift, 0),
+                     qpool))
+    return bufs, staged
+
+
+def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
+    """The two new kernels and their plain versions at the batch path's
+    shapes, then the batch path's images/s, MP/s and device busy share."""
+    from pim_jpeg_decoder_tpu.utils.profiling import StageTimers
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
+        iter_decode_batches)
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        decode_mcus, decode_mcus_reference, raster_epilogue,
+        raster_epilogue_reference)
+
+    rng = np.random.default_rng(SEED + 4)
+    bufs, st = batch_inputs(torch, dev, blobs, rng)
+    mode, m_full = st.mode, bufs[0][0].shape[0]
+    batch = len(st.headers)
+    for m in (m_full, 16384):
+        sub = [(c[:m], q[:m], qp) for c, q, qp in bufs]
+        mb = sub[0][0].numel() / 1e6 + 3 * mode.luma_slots * 16 * m / 1e6
+        k_ms = time_launches(torch, lambda b: decode_mcus(
+            *b, mode, raw=True, scale=2), sub)
+        p_ms = time_launches(torch, lambda b: decode_mcus_reference(
+            *b, mode, raw=True, scale=2), sub, runs=10)
+        if m == m_full:
+            times["rgb_scaled"] = (k_ms, p_ms)
+        print(f"[4 times] rgb_scaled kernel 4:2:0 scale 2 M={m} int8 wire: "
+              f"{k_ms * 1e3:.1f} us/launch ({mb / k_ms:.0f} GB/s of {mb:.1f}"
+              f" MB); plain PyTorch {p_ms * 1e3:.1f} us; median of 30/10 "
+              f"launches over 10 rotating inputs | {card}", flush=True)
+    for scale, dtype_name in ((2, "bfloat16"), (1, None)):
+        raws = [decode_mcus(*b, mode, raw=True, scale=scale) for b in bufs]
+        _, norm = batch_options(torch, dtype_name)
+        h0 = st.headers[0]
+        args = (mode, scale, batch, st.gh, st.gw, -(-h0.height // scale),
+                -(-h0.width // scale))
+        k_ms = time_launches(torch, lambda r: raster_epilogue(
+            r, *args, norm=norm), raws)
+        p_ms = time_launches(torch, lambda r: raster_epilogue_reference(
+            r, *args, norm=norm), raws, runs=10)
+        out_bytes = (batch * args[-2] * args[-1] * 3
+                     * (2 if dtype_name else 1))
+        mb = (raws[0].numel() + out_bytes) / 1e6
+        if scale == 2:
+            times["raster"] = (k_ms, p_ms)
+        print(f"[4 times] raster epilogue B={batch} scale {scale} -> "
+              f"{dtype_name or 'uint8'} [{batch}, {args[-2]}, {args[-1]}, 3]"
+              f": {k_ms * 1e3:.1f} us/launch ({mb / k_ms:.0f} GB/s of "
+              f"{mb:.1f} MB); plain PyTorch {p_ms * 1e3:.1f} us; median of "
+              f"30/10 launches over 10 rotating inputs | {card}", flush=True)
+        del raws
+    del bufs
+    torch.cuda.empty_cache()
+
+    order = imagenet_batches(rng, blobs)
+    mp_per_image = st.headers[0].width * st.headers[0].height / 1e6
+
+    def run(scale, dtype_name, timers=None) -> int:
+        n = 0
+        for out, headers in iter_decode_batches(
+                ([blobs[i] for i in idx] for idx in order), scale=scale,
+                device=dev, timers=timers,
+                **batch_options(torch, dtype_name)[0]):
+            n += len(headers)
+        torch.cuda.synchronize()
+        return n
+
+    for scale, dtype_name in BATCH_CONFIGS:
+        rates = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            n = run(scale, dtype_name)
+            rates.append(n / (time.monotonic() - t0))
+        timers = StageTimers()
+        run(scale, dtype_name, timers)
+        split = ", ".join(f"{k} {v[0]:.3f}"
+                          for k, v in timers.snapshot().items())
+        print(f"[4 times] batch path iter_decode_batches, {len(order)} x "
+              f"B={batch} 500x375 4:2:0, scale {scale}, "
+              f"{dtype_name or 'uint8'}: images/s "
+              f"{', '.join(f'{r:.0f}' for r in rates)} (median "
+              f"{statistics.median(rates):.0f}; MP/s "
+              f"{statistics.median(rates) * mp_per_image:.1f}); stage "
+              f"seconds of a synchronised run: {split} | {card}",
+              flush=True)
+    busy = device_busy(torch, lambda: run(1, None),
+                       "batch path run (scale 1, uint8)")
+    print(f"[4 times] {busy} | {card}", flush=True)
+
+
+def device_busy(torch, fn, label: str) -> str:
+    """One traced run of ``fn``: the union of device activity (kernels and
     copies) over the run's wall time, and the device ops that took most."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.decode_paths(paths, write=True)
+        fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -409,7 +726,7 @@ def device_busy(torch, engine, paths) -> str:
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return (f"traced engine run: wall {wall:.4f} s, device busy "
+    return (f"traced {label}: wall {wall:.4f} s, device busy "
             f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}%, idle "
             f"{100 - 100 * busy_us / 1e6 / wall:.1f}%); device time by op: "
             + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
@@ -434,32 +751,51 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pjt_smoke_") as tmp:
         t0 = time.monotonic()
         paths = build_corpus(tmp)
-        oracles, oracle_images, seen = {}, [], set()
+        oracles, scaled_oracles, oracle_images, seen = {}, {}, [], set()
+        blobs = {}
         for p in paths:
             with open(p, "rb") as f:
-                header, coeffs, raster = oracle_raster(f.read())
+                blobs[p] = f.read()
+            header, coeffs, raster = oracle_raster(blobs[p])
             oracles[p] = raster
+            scaled_oracles[p] = scaled_oracle(blobs[p], 2)
             if header.mode_key not in seen and header.num_mcus < 10000:
                 seen.add(header.mode_key)
-                oracle_images.append((header, coeffs))
+                oracle_images.append((header, coeffs, blobs[p]))
+        # The ImageNet-like photos (the corpus's first 32), and every
+        # 4:2:0 image for the crop batch.
+        imagenet = paths[:CORPUS[0][0]]
+        crop_paths = [p for p, kw in zip(paths, corpus_kwargs())
+                      if kw.get("sampling") == "4:2:0"]
+        crop_set = ([blobs[p] for p in crop_paths],
+                    {1: [oracles[p] for p in crop_paths],
+                     2: [scaled_oracles[p] for p in crop_paths]})
         print(f"[3 slice] corpus of {len(paths)} JPEGs encoded and oracle "
-              f"rasters built in {time.monotonic() - t0:.1f} s", flush=True)
+              f"rasters (full and 1/2 scale) built in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
 
         dev = torch.device("cuda", 0)
         max_err = phase_kernels(torch, dev, oracle_images)
-        counts = phase_slice(dev, paths, oracles)
+        counts = phase_slice(dev, paths, oracles, scaled_oracles)
+        counts.update({k: v for k, v in phase_batches(
+            torch, dev, [blobs[p] for p in imagenet],
+            {1: [oracles[p] for p in imagenet],
+             2: [scaled_oracles[p] for p in imagenet]},
+            crop_set).items() if k in ("rgb_scaled", "raster")})
         times = phase_times(torch, dev, card, paths)
+        phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
+                          times)
 
     kernels = [{
-        "name": f"decode_{name}",
+        "name": {"raster": "raster_epilogue"}.get(name, f"decode_{name}"),
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES[name],
+        "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1],
         "launches": counts[name],
         "max_abs_err": max_err[name],
-        "ms": times[name, "int8"][0],
-        "plain_ms": times[name, "int8"][1],
-    } for name in ("rgb", "ycbcr")]
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name in KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,23 +3,36 @@
 A port of :mod:`pim_jpeg_decoder_tpu` (JAX/Pallas on a TPU) to an NVIDIA
 Hopper GPU.  The host layer (marker scan, C++ entropy decode, BMP I/O, the
 NumPy oracle and the integer spec) is the JAX package's own, imported
-without JAX; the device decode is two hand-written CUDA kernels
-(``csrc/decode_kernel.cu``) with plain PyTorch versions beside them.
+without JAX; the device work is hand-written CUDA kernels (``csrc/``:
+full-scale RGB, YCbCr, scaled RGB and the batch raster epilogue) with
+plain PyTorch versions beside them.
 
 Top-level API (lazy, so importing the package builds and loads nothing):
-``TorchJpegDecoder``, ``decode_bytes``, ``decode_file``, ``DecodeEngine``.
+``TorchJpegDecoder``, ``decode_bytes``, ``decode_file``, ``decode_region``,
+``decode_scaled``, ``DecodeEngine``; device-resident batches
+(``models.input_pipeline``): ``decode_same_size_batch``,
+``decode_same_size_batch_crops``, ``decode_batch_crops`` (mixed sizes),
+``iter_decode_batches``, ``iter_decode_batch_crops``.
 """
 
 from pim_jpeg_decoder_tpu_torch.version import __version__
 
-__all__ = ["__version__", "TorchJpegDecoder", "decode_bytes", "decode_file",
-           "DecodeEngine"]
+_PIPELINE_API = ("TorchJpegDecoder", "decode_bytes", "decode_file",
+                 "decode_region", "decode_scaled")
+_BATCH_API = ("decode_same_size_batch", "decode_same_size_batch_crops",
+              "decode_batch_crops", "iter_decode_batches",
+              "iter_decode_batch_crops")
+
+__all__ = ["__version__", *_PIPELINE_API, "DecodeEngine", *_BATCH_API]
 
 
 def __getattr__(name):
-    if name in ("TorchJpegDecoder", "decode_bytes", "decode_file"):
+    if name in _PIPELINE_API:
         from pim_jpeg_decoder_tpu_torch.models import pipeline
         return getattr(pipeline, name)
+    if name in _BATCH_API:
+        from pim_jpeg_decoder_tpu_torch.models import input_pipeline
+        return getattr(input_pipeline, name)
     if name == "DecodeEngine":
         from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
         return DecodeEngine

@@ -32,8 +32,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="host entropy-decode threads")
     parser.add_argument("--scale", type=int, default=None,
                         choices=(1, 2, 4, 8),
-                        help="decode at 1/scale resolution (only 1 is "
-                             "ported so far)")
+                        help="decode at 1/scale resolution through the "
+                             "reduced-IDCT kernel (default 1)")
     parser.add_argument("--transport", default=None,
                         choices=("auto", "rgb", "ycbcr"),
                         help="device->host transport: ycbcr halves D2H "

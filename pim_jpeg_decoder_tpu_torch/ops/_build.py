@@ -1,11 +1,12 @@
 """Build-on-first-use of the CUDA kernels in ``csrc/*.cu``.
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface (no PyTorch headers, so it builds in seconds), inside a
-content-hashed directory under ``_build/`` (gitignored), and ``ctypes``
-loads it.  A lock keeps the engine's threads from building twice; a
-temporary output name plus an atomic rename keeps concurrent processes
-from loading a half-written library.
+``nvcc`` compiles each source to an object, all of them at once (one
+``nvcc`` process per source), and links the objects into one shared
+library with a plain C interface (no PyTorch headers, so it builds in
+seconds), inside a content-hashed directory under ``_build/``
+(gitignored); ``ctypes`` loads it.  A lock keeps the engine's threads from
+building twice; temporary output names plus an atomic rename keep
+concurrent processes from loading a half-written library.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -26,7 +27,7 @@ LIB_NAME = "libpjt_cuda.so"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -55,8 +56,17 @@ def find_nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
-def nvcc_command(output: str, nvcc: str = "nvcc") -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", output, *sources()]
+def nvcc_commands(output: str, nvcc: str = "nvcc",
+                  tag: str = "") -> Tuple[List[List[str]], List[str]]:
+    """``(compile commands, link command)``: one ``nvcc -c`` per source
+    into an object beside ``output`` (``tag`` keeps concurrent builds
+    apart), then ``nvcc -shared`` of the objects into ``output``."""
+    out_dir = os.path.dirname(output)
+    objects = [os.path.join(out_dir, os.path.basename(src)[:-3] + tag + ".o")
+               for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for obj, src in zip(objects, sources())]
+    return compiles, [nvcc, "-shared", "-o", output, *objects]
 
 
 def build() -> str:
@@ -68,13 +78,25 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    proc = subprocess.run(nvcc_command(tmp, find_nvcc()),
-                          capture_output=True, text=True)
+    tag = f".tmp{os.getpid()}"
+    tmp = lib_path + tag
+    compiles, link = nvcc_commands(tmp, find_nvcc(), tag)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [(cmd[-1], proc.communicate()[0], proc.returncode)
+            for cmd, proc in zip(compiles, procs)]
     with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(f"== {src}\n{log}" for src, log, _ in logs))
+    failed = [(src, log) for src, log, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed on " + "; ".join(
+            f"{os.path.basename(src)}:\n{log[-4000:]}" for src, log in failed))
+    proc = subprocess.run(link, capture_output=True, text=True)
+    for obj in link[4:]:                        # the objects
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, lib_path)
     return lib_path
@@ -86,12 +108,19 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for fn in (lib.pjt_cuda_decode_rgb, lib.pjt_cuda_decode_ycbcr):
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_void_p]
+            decode = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int]
+            i32, f32, ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+            for fn, argtypes in (
+                    (lib.pjt_cuda_decode_rgb, decode + [ptr]),
+                    (lib.pjt_cuda_decode_ycbcr, decode + [ptr]),
+                    (lib.pjt_cuda_decode_rgb_scaled, decode + [i32, ptr]),
+                    (lib.pjt_cuda_raster_epilogue,
+                     [ptr, ctypes.c_int64] + [i32] * 8 + [ptr, ptr, i32]
+                     + [f32] * 6 + [ptr, ptr])):
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -42,7 +42,7 @@ from pim_jpeg_decoder_tpu.utils.config import EngineConfig
 from pim_jpeg_decoder_tpu.utils.log import logger
 from pim_jpeg_decoder_tpu.utils.profiling import STAGES, StageTimers
 from pim_jpeg_decoder_tpu_torch.models.pipeline import (
-    assemble_raster_raw,
+    assemble_raster_raw_scaled,
     assemble_raster_ycbcr,
     entropy_decode,
     output_path,
@@ -72,7 +72,7 @@ class _BandAccumulator:
     name: str
     uid: int
     header: JpegHeader
-    raster: np.ndarray          # [H, W, 3], tiles pasted as they finish
+    raster: np.ndarray          # [H/s, W/s, 3], tiles pasted as they finish
     remaining: int              # tiles still in flight
     failed: bool = False
 
@@ -147,10 +147,6 @@ class DecodeEngine:
             budget_mcus=budget_mcus, lane_tile=lane_tile,
             prepare_threads=prepare_threads)
         cfg.validate()
-        if cfg.scale != 1:
-            raise NotImplementedError(
-                "scaled decode is not ported yet (ROADMAP.md Queue 1, "
-                "item 8)")
         if cfg.num_devices not in (None, 1):
             raise NotImplementedError(
                 "multi-GPU decode is not ported yet (ROADMAP.md Queue 1, "
@@ -163,6 +159,7 @@ class DecodeEngine:
         self.max_launch_mcus = cfg.max_launch_mcus
         self.transport = cfg.transport
         self.wire = cfg.wire
+        self.scale = cfg.scale
         self.keep_rgb = keep_rgb
         self.device = resolve_device(device)
         self._h2d_stream = None
@@ -227,10 +224,12 @@ class DecodeEngine:
         cols_per = min(gw, self.max_launch_mcus)
         rows_per = max(1, self.max_launch_mcus // cols_per)
         px_h, px_w = 8 * mode.v, 8 * mode.h
+        s = self.scale
         n_tiles = (-(-gh // rows_per)) * (-(-gw // cols_per))
         acc = _BandAccumulator(
             prepared.name, prepared.uid, header,
-            np.empty((header.height, header.width, 3), np.uint8),
+            np.empty((-(-header.height // s), -(-header.width // s), 3),
+                     np.uint8),
             remaining=n_tiles)
         grid = prepared.coeffs[: gh * gw].reshape(gh, gw, mode.g, 64)
         for r0 in range(0, gh, rows_per):
@@ -246,7 +245,7 @@ class DecodeEngine:
                 tile = PreparedImage(
                     prepared.name, tile_header, tile_coeffs,
                     uid=prepared.uid,
-                    band_target=(acc, r0 * px_h, c0 * px_w))
+                    band_target=(acc, r0 * px_h // s, c0 * px_w // s))
                 router = ModeRouter(self._dedicated_budget(
                     tile_header.num_mcus), max_images=1,
                     align=self.lane_tile)
@@ -255,8 +254,9 @@ class DecodeEngine:
 
     def _use_ycbcr(self, mode: S.ModeSpec) -> bool:
         """YCbCr planes whenever they are fewer D2H bytes than RGB (every
-        mode except 4:4:4), unless the transport is forced."""
-        if self.transport == "rgb":
+        mode except 4:4:4), unless the transport is forced.  Scaled decode
+        always emits reduced RGB (the config refuses ycbcr with it)."""
+        if self.scale != 1 or self.transport == "rgb":
             return False
         if self.transport == "ycbcr":
             return True
@@ -271,7 +271,7 @@ class DecodeEngine:
         with timers.stage("kernel"):
             if self._h2d_stream is None:
                 out = decode_mcus(*inputs, batch.mode, raw=not ycbcr,
-                                  ycbcr=ycbcr)
+                                  ycbcr=ycbcr, scale=self.scale)
                 return out.numpy(), None
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(batch.ready)
@@ -280,7 +280,7 @@ class DecodeEngine:
                 # caching allocator from reusing them too early.
                 t.record_stream(stream)
             out = decode_mcus(*inputs, batch.mode, raw=not ycbcr,
-                              ycbcr=ycbcr)
+                              ycbcr=ycbcr, scale=self.scale)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             return host, stream.record_event()
@@ -291,7 +291,7 @@ class DecodeEngine:
                       finish_pool=None) -> None:
         ycbcr = batch.transport == "ycbcr"
         with timers.stage("d2h"):
-            # [g, 64, alloc] YCbCr planes or [3, luma_slots, 64, alloc] RGB
+            # [g, 64, alloc] YCbCr planes or [3, luma_slots, nn, alloc] RGB
             if done is not None:
                 done.synchronize()
                 host_out = host_out.numpy()
@@ -351,7 +351,8 @@ class DecodeEngine:
         if ycbcr:
             rgb = assemble_raster_ycbcr(header, raw, mcu_off=off)
         else:
-            rgb = assemble_raster_raw(header, raw, mcu_off=off)
+            rgb = assemble_raster_raw_scaled(header, raw, self.scale,
+                                             mcu_off=off)
         if img.band_target is not None:
             acc, y0, x0 = img.band_target
             acc.raster[y0:y0 + rgb.shape[0], x0:x0 + rgb.shape[1]] = rgb

@@ -173,7 +173,25 @@ def test_wrapper_rejects_bad_inputs(case):
 
 
 @pytest.mark.parametrize("scale", [2, 4, 8])
-def test_scaled_decode_not_ported_yet(scale):
+def test_scaled_decode_layouts(scale):
+    """Scaled decode on CPU tensors: ``[3, gy, nn, M]`` raw and
+    ``[M, gy, nn, 3]`` slot-major (the same bytes), counted as no launch;
+    the YCbCr transport stays full-scale only, as in the JAX package."""
     mode = S.mode_for((2, 2, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    coeffs, qidx, qpool = make_inputs(mode, np.int16, seed=scale)
+    nn = (8 // scale) ** 2
+    before = K.launch_counts()
+    raw = port(coeffs, qidx, qpool, mode, raw=True, scale=scale)
+    slots = port(coeffs, qidx, qpool, mode, scale=scale)
+    assert K.launch_counts() == before
+    assert raw.shape == (3, mode.luma_slots, nn, M) and raw.dtype == np.uint8
+    np.testing.assert_array_equal(slots, raw.transpose(3, 1, 2, 0))
+    with pytest.raises(ValueError, match="full-scale only"):
+        K.decode_mcus(*_valid(mode), mode, ycbcr=True, scale=scale)
+
+
+@pytest.mark.parametrize("scale", [0, 3, 16])
+def test_wrapper_rejects_bad_scale(scale):
+    mode = S.mode_for((2, 2, 3))
+    with pytest.raises(ValueError, match="scale must be 1, 2, 4 or 8"):
         K.decode_mcus(*_valid(mode), mode, raw=True, scale=scale)

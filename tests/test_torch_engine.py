@@ -217,7 +217,31 @@ def test_compact_wire_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("cfg", [dict(scale=2), dict(num_devices=2)])
+@pytest.mark.parametrize("cfg", [dict(num_devices=2)])
 def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(config=EngineConfig(**cfg), device="cpu")
+
+
+@pytest.mark.parametrize("scale", [2, 4, 8])
+def test_engine_scale_matches_decode_scaled(corpus, monkeypatch, scale):
+    """``scale`` through the engine (packed, dedicated and banded routes)
+    gives the single-image ``decode_scaled`` pixels."""
+    from pim_jpeg_decoder_tpu_torch.models.pipeline import decode_scaled
+
+    for k, v in SMALL_ENV.items():
+        monkeypatch.setenv(k, v)
+    items = [(n, (corpus / n).read_bytes()) for n, _, _ in CORPUS]
+    engine = DecodeEngine(keep_rgb=True, device="cpu",
+                          config=EngineConfig.from_env(scale=scale))
+    report = engine.decode_named_blobs(items)
+    assert report.ok_count == len(CORPUS)
+    for r, (name, data) in zip(report.results, items):
+        np.testing.assert_array_equal(r.rgb, decode_scaled(data, scale,
+                                                           device="cpu"))
+
+
+def test_engine_refuses_ycbcr_with_scale():
+    with pytest.raises(ValueError, match="full-scale only"):
+        DecodeEngine(config=EngineConfig(scale=2, transport="ycbcr"),
+                     device="cpu")

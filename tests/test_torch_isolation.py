@@ -35,16 +35,27 @@ def test_port_decodes_without_loading_jax(tmp_path):
         import pim_jpeg_decoder_tpu_torch.cli
         import pim_jpeg_decoder_tpu_torch.ops._build
         import pim_jpeg_decoder_tpu_torch.runtime.batching
+        import torch
         from pim_jpeg_decoder_tpu.codec.encoder import encode_jpeg
         img = np.random.default_rng(0).integers(0, 256, (40, 48, 3),
                                                  dtype=np.uint8)
         data = encode_jpeg(img, sampling="4:2:0")
         rgb = port.decode_bytes(data, device="cpu")
         assert rgb.shape == (40, 48, 3)
+        assert port.decode_scaled(data, 2, device="cpu").shape == (20, 24, 3)
+        assert port.decode_region(data, 1, 2, 8, 9,
+                                  device="cpu").shape == (8, 9, 3)
+        batch, _ = port.decode_same_size_batch(
+            [data] * 2, scale=2, dtype=torch.bfloat16, mean=128.0, std=64.0,
+            device="cpu")
+        assert batch.shape == (2, 20, 24, 3)
+        for crops, _ in port.iter_decode_batch_crops(
+                [([data] * 2, [(0, 0), (8, 8)])], (16, 16), device="cpu"):
+            assert crops.shape == (2, 16, 16, 3)
         path = {str(tmp_path / 'x.jpg')!r}
         open(path, "wb").write(data)
         rc = pim_jpeg_decoder_tpu_torch.cli.main([path, "--device", "cpu",
-                                                  "--quiet"])
+                                                  "--quiet", "--scale", "4"])
         assert rc == 0, rc
         assert "jax" not in sys.modules, "jax was imported"
         print("OK")
@@ -103,16 +114,23 @@ def test_cli_default_device_errors_without_a_card(tmp_path, capsys):
 
 
 def test_nvcc_command_targets_sm90a_under_the_gitignored_build_dir():
+    """One nvcc per source (all started together), then one link."""
     out = os.path.join(_build.build_dir(), _build.LIB_NAME)
-    cmd = _build.nvcc_command(out)
-    assert cmd[0] == "nvcc"
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-O3", "-shared", "-std=c++17"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
-    assert cmd[cmd.index("-o") + 1] == out
-    assert os.path.join(PORT, "csrc", "decode_kernel.cu") in cmd
+    compiles, link = _build.nvcc_commands(out)
+    assert [cmd[-1] for cmd in compiles] == [
+        os.path.join(PORT, "csrc", name)
+        for name in ("decode_kernel.cu", "raster_epilogue.cu")]
+    for cmd in compiles:
+        assert cmd[0] == "nvcc"
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-O3", "-c", "-std=c++17"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
+        obj = cmd[cmd.index("-o") + 1]
+        assert os.path.dirname(obj) == os.path.dirname(out)
+        assert obj in link
+    assert link[:4] == ["nvcc", "-shared", "-o", out]
     rel = os.path.relpath(out, REPO)
     assert rel.startswith(os.path.join("pim_jpeg_decoder_tpu_torch",
                                        "_build") + os.sep)
