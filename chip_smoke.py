@@ -12,8 +12,10 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
 2. each kernel against its plain PyTorch version on the card, byte for byte
    (tolerance 0: the decode spec is integer, and the epilogue rounds the
    same float32 values once): the full-scale RGB, YCbCr and scaled RGB
-   (scale 2/4/8) decode kernels for every sampling mode, both wires, at
-   M=16,384 and at an odd M=1,001 with extreme blocks; the RGB kernels also
+   (scale 2/4/8) decode kernels and the dequantize, IDCT and colour stage
+   kernels for every sampling mode, both wires, at M=16,384 and at an odd
+   M=1,001 with extreme blocks (Q=16 with one 16-bit quantizer row); the
+   stages composed equal to the fused RGB kernel; the RGB kernels also
    against the NumPy oracle (full and scaled) on encoded images; the raster
    epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped;
 3. the main paths, each with the launch counts set to 0 just before it and
@@ -21,15 +23,21 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
    equal to the oracle raster, the same BMPs with ``--transport rgb`` and
    with banded launches, per-file failures for a corrupt and a missing
    file) and with ``--scale 2`` (every BMP equal to the scaled oracle); the
-   device-resident batch path, ``iter_decode_batches`` over 4 batches of
-   B=256 500x375 4:2:0 images at scale 1 and 2, as uint8 and as bfloat16
-   normalised with the ImageNet statistics, every batch equal to the
-   oracle rasters; ``decode_batch_crops`` of 224x224 random crops from
-   4:2:0 images of three sizes, equal to slices of the oracle rasters;
-4. kernel and plain-version times with CUDA events (10 rotating inputs,
-   past the 50 MB L2), the engine's end-to-end MP/s on the corpus, the
-   batch path's images/s and MP/s, and the device busy share of one
-   traced run of each.
+   device profile, ``cli.main --device-profile measure --profile DIR`` (the
+   stage kernels launched, the phase lines printed, a trace naming the
+   decode kernels written) and again with the default ``cached`` (the same
+   phase lines, no stage kernel launched); the device-resident batch path,
+   ``iter_decode_batches`` over 4 batches of B=256 500x375 4:2:0 images at
+   scale 1 and 2, as uint8 and as bfloat16 normalised with the ImageNet
+   statistics, every batch equal to the oracle rasters;
+   ``decode_batch_crops`` of 224x224 random crops from 4:2:0 images of
+   three sizes, equal to slices of the oracle rasters;
+4. kernel and plain-version times with CUDA events
+   (``utils/devbench.seconds_per_launch``, 10 rotating inputs past the 50
+   MB L2; median with min and max), the ``tools/stage_profile`` record
+   (staged sum, fused time, fusion ratio), the engine's end-to-end MP/s on
+   the corpus, the batch path's images/s and MP/s, and the device busy
+   share of one traced run of each.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -63,7 +71,16 @@ KERNELS = {
                    "pim_jpeg_decoder_tpu/ops/decode_kernel.py:268"),
     "raster": ("pim_jpeg_decoder_tpu_torch/csrc/raster_epilogue.cu",
                "pim_jpeg_decoder_tpu/models/input_pipeline.py:93"),
+    "dequant": ("pim_jpeg_decoder_tpu_torch/csrc/stage_kernels.cu",
+                "pim_jpeg_decoder_tpu/ops/stage_kernels.py:37"),
+    "idct": ("pim_jpeg_decoder_tpu_torch/csrc/stage_kernels.cu",
+             "pim_jpeg_decoder_tpu/ops/stage_kernels.py:52"),
+    "color": ("pim_jpeg_decoder_tpu_torch/csrc/stage_kernels.cu",
+              "pim_jpeg_decoder_tpu/ops/stage_kernels.py:61"),
 }
+JSON_NAMES = {"raster": "raster_epilogue", "dequant": "stage_dequantize",
+              "idct": "stage_idct", "color": "stage_color"}
+STAGES = ("dequant", "idct", "color")
 IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
                      std=(58.395, 57.12, 57.375))
 
@@ -187,6 +204,8 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                              f"{np.dtype(wire).name} M={m} scale {scale} "
                              f"max|err|={err}")
                     cases += 1
+                cases += stage_cases(torch, mode, x, qi, qp, max_err,
+                                     f"{np.dtype(wire).name} M={m}")
     n_mcus = 0
     for header, coeffs, data in oracle_images:
         mode = S.mode_for(header.mode_key)
@@ -207,14 +226,48 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                      f"{mode.name} at scale {scale}")
         n_mcus += header.num_mcus
     n_epi = epilogue_cases(torch, dev, rng, max_err)
-    print(f"[2 kernels] {cases} decode kernel-vs-plain cases byte-identical "
-          f"on the card (5 modes x i16/i8 x M=16384/1001-with-extremes x "
-          f"rgb/ycbcr/scaled 2,4,8; Q=16; tolerance 0); rgb and rgb_scaled "
+    print(f"[2 kernels] {cases} decode and stage kernel-vs-plain cases "
+          f"byte-identical on the card (5 modes x i16/i8 x "
+          f"M=16384/1001-with-extremes x rgb/ycbcr/scaled 2,4,8 and "
+          f"dequant/idct/color (also on raw int16)/staged==fused; Q=16; "
+          f"tolerance 0); rgb and rgb_scaled "
           f"(2/4/8) == NumPy oracle on {n_mcus} MCUs of "
           f"{len(oracle_images)} encoded images; {n_epi} raster-epilogue "
           f"cases byte-identical (5 modes x scale 1/2/4/8 x u8/f32/bf16/f16 "
           f"x full/cropped)", flush=True)
     return max_err
+
+
+def stage_cases(torch, mode, x, qi, qp, max_err, what: str) -> int:
+    """The three stage kernels against their plain versions on one batch
+    (the colour stage also on the dequantized int16, whose extremes wrap
+    the BT.601 products), and the three composed against the fused RGB
+    kernel."""
+    from pim_jpeg_decoder_tpu_torch.ops import stage_kernels as SK
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
+
+    def same(name, got, want) -> None:
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if got.shape != want.shape or err:
+            fail(f"{name} stage kernel != plain version: {mode.name} {what}"
+                 f" max|err|={err}")
+
+    deq = SK.dequantize_stage(x, qi, qp, mode)
+    same("dequant", deq, SK.dequantize_stage_reference(x, qi, qp))
+    spat = SK.idct_stage(deq, mode)
+    same("idct", spat, SK.idct_stage_reference(deq))
+    for src in (spat, deq):
+        same("color", SK.color_stage(src, mode, raw=True),
+             SK.color_stage_reference(src, mode, raw=True))
+    staged = SK.decode_mcus_staged(x, qi, qp, mode)
+    fused = decode_mcus(x, qi, qp, mode)
+    torch.cuda.synchronize()
+    if not torch.equal(staged, fused):
+        fail(f"decode_mcus_staged != decode_mcus on the card: {mode.name} "
+             f"{what}")
+    return 5
 
 
 def epilogue_cases(torch, dev, rng, max_err) -> int:
@@ -420,6 +473,81 @@ def phase_slice(dev, paths, oracles, scaled_oracles) -> dict:
     return counts
 
 
+PHASE_LABELS = ("GPU kernel device time", "Device dequantization time",
+                "Device inverse DCT time", "Device color conversion time")
+
+
+def phase_profile(dev, paths, tmp: str) -> dict:
+    """``cli.main --device-profile measure --profile DIR`` on the corpus,
+    then the default ``cached`` run: the stage kernels launch in the first
+    run only, both print the same phase lines, and the trace names the
+    decode kernels.  Returns the launch counts of the first run."""
+    import io
+
+    from pim_jpeg_decoder_tpu_torch.cli import main
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        launch_counts, reset_launch_counts)
+    from pim_jpeg_decoder_tpu_torch.runtime import device_profile
+
+    device_profile.CACHE_PATH = os.path.join(tmp, "phase_cache.json")
+    trace_dir = os.path.join(tmp, "trace")
+    walls = []
+
+    def run(args):
+        out = io.StringIO()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            rc = main([*paths, "--device", str(dev), "--no-write", *args])
+        walls.append(time.monotonic() - t0)
+        counts = launch_counts()
+        if rc != 0:
+            fail(f"cli.main {' '.join(args)} exited {rc}")
+        lines = out.getvalue().splitlines()
+        start = [i for i, ln in enumerate(lines) if PHASE_LABELS[0] in ln]
+        phases = lines[start[0]:] if start else []
+        for label in PHASE_LABELS:
+            if not any(label in ln for ln in phases):
+                fail(f"cli.main {' '.join(args)}: no '{label}' line in the "
+                     f"Profiles block:\n{out.getvalue()}")
+        return counts, phases, lines
+
+    with env("PIM_JPEG_TPU_PROFILE", trace_dir):
+        counts, phases, lines = run(["--device-profile", "measure",
+                                     "--profile", trace_dir])
+    if min(counts[k] for k in STAGES) < 1 or counts["plain_on_cuda"]:
+        fail(f"--device-profile measure did not go through the stage "
+             f"kernels alone: {counts}")
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.endswith(".json")]
+    if len(traces) != 1:
+        fail(f"--profile wrote {len(traces)} trace files: {traces}")
+    with open(traces[0]) as f:
+        trace = f.read()
+    json.loads(trace)
+    if "rgb_kernel" not in trace or "ycbcr_kernel" not in trace:
+        fail("the --profile trace does not name rgb_kernel and ycbcr_kernel")
+    cached_counts, cached_phases, _ = run([])
+    if cached_phases != phases:
+        fail(f"the cached run printed other phase lines: {cached_phases} "
+             f"vs {phases}")
+    if any(cached_counts[k] for k in STAGES) or cached_counts["plain_on_cuda"]:
+        fail(f"the cached run launched stage kernels: {cached_counts}")
+    init = [ln for ln in lines if "Device program init" in ln]
+    print(f"[3 slice] cli.main --device-profile measure --profile on "
+          f"{len(paths)} JPEGs: exit 0; launches "
+          + " ".join(f"{k}={counts[k]}" for k in ("rgb", "ycbcr", *STAGES,
+                                                    "plain_on_cuda"))
+          + f"; trace {os.path.getsize(traces[0])} bytes names rgb_kernel "
+          f"and ycbcr_kernel; the cached rerun printed the same phase lines "
+          f"with 0 stage launches; CLI wall {walls[0]:.2f} s (measure + "
+          f"trace) vs {walls[1]:.2f} s (cached). {' '.join(init)}",
+          flush=True)
+    for ln in phases:
+        print(f"[3 slice]   {ln.strip()}", flush=True)
+    return counts
+
+
 def imagenet_batches(rng, blobs, batches: int = 4, size: int = 256):
     """``batches`` lists of ``size`` indices into ``blobs``: each blob
     size / len(blobs) times, in a seeded order."""
@@ -515,21 +643,19 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
 
 # --- phase 4 -----------------------------------------------------------------
 
-def time_launches(torch, fn, bufs, runs: int = 30) -> float:
-    """Median ms per launch: a GPU sleep lets the host queue every launch
-    first, so back-to-back events time the device, not the host."""
-    for b in bufs[:3]:
-        fn(b)
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
-    torch.cuda._sleep(200_000_000)
-    events[0].record()
-    for i in range(runs):
-        fn(bufs[i % len(bufs)])
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    return statistics.median(events[i].elapsed_time(events[i + 1])
-                             for i in range(runs))
+def time_band(fn, bufs, runs: int = 30):
+    """(median, min, max) ms per launch from the per-launch samples of
+    ``utils/devbench.seconds_per_launch``."""
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import seconds_per_launch
+
+    ms = sorted(t * 1e3 for t in seconds_per_launch(fn, bufs, runs=runs,
+                                                     samples=True))
+    return statistics.median(ms), ms[0], ms[-1]
+
+
+def us_band(band) -> str:
+    med, lo, hi = band
+    return f"{med * 1e3:.1f} us (min {lo * 1e3:.1f}, max {hi * 1e3:.1f})"
 
 
 def phase_times(torch, dev, card: str, paths) -> dict:
@@ -538,6 +664,7 @@ def phase_times(torch, dev, card: str, paths) -> dict:
         coeffs_to_device, decode_mcus, decode_mcus_reference,
         qpool_to_device)
     from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
+    from pim_jpeg_decoder_tpu_torch.tools.stage_profile import profile
 
     mode = S.mode_for((2, 2, 3))
     m = 16384
@@ -553,21 +680,26 @@ def phase_times(torch, dev, card: str, paths) -> dict:
         mb_in = bufs[0][0].numel() * bufs[0][0].element_size() / 1e6
         for name in ("rgb", "ycbcr"):
             yc = name == "ycbcr"
-            k_ms = time_launches(torch, lambda b: decode_mcus(
-                *b, mode, raw=True, ycbcr=yc), bufs)
-            p_ms = time_launches(torch, lambda b: decode_mcus_reference(
+            k = time_band(lambda b: decode_mcus(*b, mode, raw=True,
+                                                ycbcr=yc), bufs)
+            p = time_band(lambda b: decode_mcus_reference(
                 *b, mode, raw=True, ycbcr=yc), bufs, runs=20)
             wname = np.dtype(wire).name
             if wire is np.int8:
-                times[name] = (k_ms, p_ms)
+                times[name] = (k[0], p[0])
             mb_out = (mode.g if yc else 3 * mode.luma_slots) * 64 * m / 1e6
             print(f"[4 times] {name} kernel 4:2:0 M={m} {wname} wire: "
-                  f"{k_ms * 1e3:.1f} us/launch ({(mb_in + mb_out) / k_ms:.0f}"
-                  f" GB/s of {mb_in + mb_out:.1f} MB); plain PyTorch "
-                  f"{p_ms * 1e3:.1f} us; median of 30/20 launches over 10 "
-                  f"rotating inputs | {card}", flush=True)
+                  f"{us_band(k)}/launch ({(mb_in + mb_out) / k[0]:.0f} GB/s "
+                  f"of {mb_in + mb_out:.1f} MB); plain PyTorch {us_band(p)};"
+                  f" 30/20 launches over 10 rotating inputs | {card}",
+                  flush=True)
+        if wire is np.int16:
+            stage_times(torch, mode, bufs, times, card)
         del bufs
     torch.cuda.empty_cache()
+    record = profile(dev)
+    print(f"[4 times] tools/stage_profile (4:2:0, M={m}, int16, Q=16): "
+          f"{json.dumps(record)} | {card}", flush=True)
 
     engine = DecodeEngine(device=dev)
     engine.decode_paths(paths, write=False)        # warm: pools, allocator
@@ -592,6 +724,36 @@ def phase_times(torch, dev, card: str, paths) -> dict:
                        "engine run")
     print(f"[4 times] {busy} | {card}", flush=True)
     return times
+
+
+def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
+    """The three stage kernels and their plain versions at the stage
+    profile's geometry (``bufs``: 10 rotating 4:2:0 int16 inputs, Q=16)."""
+    from pim_jpeg_decoder_tpu_torch.ops import stage_kernels as SK
+
+    deqs = [SK.dequantize_stage(*b, mode) for b in bufs]
+    spats = [SK.idct_stage(d, mode) for d in deqs]
+    m = deqs[0].shape[0]
+    i16_mb = deqs[0].numel() * 2 / 1e6
+    rgb_mb = 3 * mode.luma_slots * 64 * m / 1e6
+    cases = {
+        "dequant": (lambda b: SK.dequantize_stage(*b, mode),
+                    lambda b: SK.dequantize_stage_reference(*b), bufs,
+                    2 * i16_mb),
+        "idct": (lambda d: SK.idct_stage(d, mode), SK.idct_stage_reference,
+                 deqs, 2 * i16_mb),
+        "color": (lambda sp: SK.color_stage(sp, mode, raw=True),
+                  lambda sp: SK.color_stage_reference(sp, mode, raw=True),
+                  spats, i16_mb + rgb_mb),
+    }
+    for name, (kernel, plain, inputs, mb) in cases.items():
+        k = time_band(kernel, inputs)
+        p = time_band(plain, inputs, runs=20)
+        times[name] = (k[0], p[0])
+        print(f"[4 times] {name} stage kernel 4:2:0 M={m} int16: "
+              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB); "
+              f"plain PyTorch {us_band(p)}; 30/20 launches over 10 rotating "
+              f"inputs | {card}", flush=True)
 
 
 def batch_inputs(torch, dev, blobs, rng, count: int = 10):
@@ -634,36 +796,35 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
     for m in (m_full, 16384):
         sub = [(c[:m], q[:m], qp) for c, q, qp in bufs]
         mb = sub[0][0].numel() / 1e6 + 3 * mode.luma_slots * 16 * m / 1e6
-        k_ms = time_launches(torch, lambda b: decode_mcus(
-            *b, mode, raw=True, scale=2), sub)
-        p_ms = time_launches(torch, lambda b: decode_mcus_reference(
+        k = time_band(lambda b: decode_mcus(*b, mode, raw=True, scale=2),
+                      sub)
+        p = time_band(lambda b: decode_mcus_reference(
             *b, mode, raw=True, scale=2), sub, runs=10)
         if m == m_full:
-            times["rgb_scaled"] = (k_ms, p_ms)
+            times["rgb_scaled"] = (k[0], p[0])
         print(f"[4 times] rgb_scaled kernel 4:2:0 scale 2 M={m} int8 wire: "
-              f"{k_ms * 1e3:.1f} us/launch ({mb / k_ms:.0f} GB/s of {mb:.1f}"
-              f" MB); plain PyTorch {p_ms * 1e3:.1f} us; median of 30/10 "
-              f"launches over 10 rotating inputs | {card}", flush=True)
+              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB); "
+              f"plain PyTorch {us_band(p)}; 30/10 launches over 10 rotating "
+              f"inputs | {card}", flush=True)
     for scale, dtype_name in ((2, "bfloat16"), (1, None)):
         raws = [decode_mcus(*b, mode, raw=True, scale=scale) for b in bufs]
         _, norm = batch_options(torch, dtype_name)
         h0 = st.headers[0]
         args = (mode, scale, batch, st.gh, st.gw, -(-h0.height // scale),
                 -(-h0.width // scale))
-        k_ms = time_launches(torch, lambda r: raster_epilogue(
-            r, *args, norm=norm), raws)
-        p_ms = time_launches(torch, lambda r: raster_epilogue_reference(
+        k = time_band(lambda r: raster_epilogue(r, *args, norm=norm), raws)
+        p = time_band(lambda r: raster_epilogue_reference(
             r, *args, norm=norm), raws, runs=10)
         out_bytes = (batch * args[-2] * args[-1] * 3
                      * (2 if dtype_name else 1))
         mb = (raws[0].numel() + out_bytes) / 1e6
         if scale == 2:
-            times["raster"] = (k_ms, p_ms)
+            times["raster"] = (k[0], p[0])
         print(f"[4 times] raster epilogue B={batch} scale {scale} -> "
               f"{dtype_name or 'uint8'} [{batch}, {args[-2]}, {args[-1]}, 3]"
-              f": {k_ms * 1e3:.1f} us/launch ({mb / k_ms:.0f} GB/s of "
-              f"{mb:.1f} MB); plain PyTorch {p_ms * 1e3:.1f} us; median of "
-              f"30/10 launches over 10 rotating inputs | {card}", flush=True)
+              f": {us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB);"
+              f" plain PyTorch {us_band(p)}; 30/10 launches over 10 rotating"
+              f" inputs | {card}", flush=True)
         del raws
     del bufs
     torch.cuda.empty_cache()
@@ -777,6 +938,8 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         max_err = phase_kernels(torch, dev, oracle_images)
         counts = phase_slice(dev, paths, oracles, scaled_oracles)
+        counts.update({k: v for k, v in phase_profile(dev, paths, tmp).items()
+                       if k in STAGES})
         counts.update({k: v for k, v in phase_batches(
             torch, dev, [blobs[p] for p in imagenet],
             {1: [oracles[p] for p in imagenet],
@@ -787,7 +950,7 @@ def main() -> int:
                           times)
 
     kernels = [{
-        "name": {"raster": "raster_epilogue"}.get(name, f"decode_{name}"),
+        "name": JSON_NAMES.get(name, f"decode_{name}"),
         "route": "cuda",
         "source": KERNELS[name][0],
         "replaces": KERNELS[name][1],

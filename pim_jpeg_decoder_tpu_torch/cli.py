@@ -1,10 +1,12 @@
 """Command-line entry: ``python -m pim_jpeg_decoder_tpu_torch <jpegs...>``
 
-The JAX package's CLI flags (``--profile`` and ``--device-profile`` are not
-ported yet), plus ``--device``: the inputs are sorted by size, decoded
-through the pipelined engine on one device, a BMP is written next to each
-input (extension replaced with .bmp), and a "Profiles:" block of host stage
-times is printed at exit.  Exit code 0 when
+The JAX package's CLI flags, plus ``--device``: the inputs are sorted by
+size, decoded through the pipelined engine on one device, a BMP is written
+next to each input (extension replaced with .bmp), and a "Profiles:" block
+is printed at exit: host stage times, the device program init, and the
+per-phase device breakdown (``--device-profile``; cached under
+``<tmp>/pim_jpeg_tpu_torch/phase_cache.json``).  ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the run into DIR.  Exit code 0 when
 every file decoded, 1 otherwise (per-file errors on stderr).
 """
 
@@ -48,7 +50,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="decode only; skip BMP output")
     parser.add_argument("--quiet", action="store_true",
                         help="suppress the profile report")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="write a torch.profiler trace (Chrome trace "
+                             "JSON: host ops, kernels and copies) to DIR")
+    parser.add_argument("--device-profile", nargs="?", const="measure",
+                        default="cached", choices=("measure", "cached", "off"),
+                        help="per-phase device timing in the Profiles block "
+                             "(dequantize/IDCT/color, like the reference's "
+                             "DPU cycle counters). Default 'cached' prints "
+                             "disk-cached measurements and launches nothing; "
+                             "'measure' times any missing launch geometry "
+                             "now with the stage kernels")
     args = parser.parse_args(argv)
+
+    import os
+    if args.profile:
+        os.environ["PIM_JPEG_TPU_PROFILE"] = args.profile
 
     from pim_jpeg_decoder_tpu.utils.config import EngineConfig
     from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
@@ -81,7 +98,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif r.out_path and not args.quiet:
             print(f"{r.name} -> {r.out_path}")
     if not args.quiet:
-        report.print_profile()
+        report.print_profile(device_phases=args.device_profile)
     return 1 if failures else 0
 
 

@@ -1,4 +1,5 @@
-"""Build-on-first-use of the CUDA kernels in ``csrc/*.cu``.
+"""Build-on-first-use of the CUDA kernels in ``csrc/*.cu`` (with the
+device helpers they share in ``csrc/*.cuh``).
 
 ``nvcc`` compiles each source to an object, all of them at once (one
 ``nvcc`` process per source), and links the objects into one shared
@@ -37,10 +38,15 @@ def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def build_dir() -> str:
-    """``_build/<hash of the sources and flags>``."""
+    """``_build/<hash of the sources, the headers they include and the
+    flags>``: an edit to a shared header is a new library too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + headers():
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
@@ -119,7 +125,14 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_decode_rgb_scaled, decode + [i32, ptr]),
                     (lib.pjt_cuda_raster_epilogue,
                      [ptr, ctypes.c_int64] + [i32] * 8 + [ptr, ptr, i32]
-                     + [f32] * 6 + [ptr, ptr])):
+                     + [f32] * 6 + [ptr, ptr]),
+                    (lib.pjt_cuda_dequant_stage,
+                     [ptr, i32, ptr, ptr, i32, ptr, ctypes.c_int64, i32,
+                      ptr]),
+                    (lib.pjt_cuda_idct_stage,
+                     [ptr, ptr, ctypes.c_int64, ptr]),
+                    (lib.pjt_cuda_color_stage,
+                     [ptr, ptr, ctypes.c_int64, i32, i32, i32, ptr])):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

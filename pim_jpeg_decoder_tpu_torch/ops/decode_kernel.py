@@ -40,7 +40,8 @@ from pim_jpeg_decoder_tpu.ops.idct_math import idct_1d
 # "plain_on_cuda" counts plain-version calls on CUDA tensors (a run that
 # claims to use the kernels must show 0 there).
 _counts: Dict[str, int] = {"rgb": 0, "ycbcr": 0, "rgb_scaled": 0,
-                           "raster": 0, "plain_on_cuda": 0}
+                           "raster": 0, "dequant": 0, "idct": 0, "color": 0,
+                           "plain_on_cuda": 0}
 _counts_lock = threading.Lock()
 
 
@@ -83,7 +84,16 @@ def qpool_to_device(qpool: np.ndarray, device) -> torch.Tensor:
 
 # --- plain PyTorch version ---------------------------------------------------
 
-def _idct_blocks(deq: torch.Tensor) -> torch.Tensor:
+def dequantized(coeffs: torch.Tensor, qidx: torch.Tensor,
+                qpool: torch.Tensor) -> torch.Tensor:
+    """``clip(coeffs * qpool[qidx[m]])`` to the int16 range, as int32
+    ``[M, g, 64]``."""
+    q = qpool[qidx.long()]                                   # [M, g, 64]
+    return (coeffs.to(torch.int32) * q).clamp(-S.DEQUANT_CLAMP - 1,
+                                               S.DEQUANT_CLAMP)
+
+
+def idct_blocks(deq: torch.Tensor) -> torch.Tensor:
     """``[..., 8(v), 8(u)]`` int32 dequantized blocks -> ``[..., 8(px),
     8(py)]`` int32 samples clamped to the sample range (column-major, the
     kernels' pixel order)."""
@@ -173,26 +183,36 @@ def decode_mcus_reference(coeffs: torch.Tensor, qidx: torch.Tensor,
     if coeffs.device.type == "cuda":
         _count("plain_on_cuda")
     m = coeffs.shape[0]
-    x = coeffs.to(torch.int32)
-    q = qpool[qidx.long()]                                   # [M, g, 64]
-    deq = (x * q).clamp(-S.DEQUANT_CLAMP - 1, S.DEQUANT_CLAMP)
-    deq = deq.view(m, mode.g, 8, 8)
-    gy = mode.luma_slots
+    deq = dequantized(coeffs, qidx, qpool).view(m, mode.g, 8, 8)
     if scale != 1:
         luma, cb, cr = _scaled_samples(deq, mode, 8 // scale)
     else:
-        spat = _idct_blocks(deq).reshape(m, mode.g, 64)
+        spat = idct_blocks(deq).reshape(m, mode.g, 64)
         if ycbcr:
             return (spat + 128).to(torch.uint8).permute(1, 2, 0).contiguous()
-        luma = spat[:, :gy]
-        if mode.ncomp == 3:
-            idx = _chroma_index(mode).to(coeffs.device)
-            cb = spat[:, gy][:, idx]                         # [M, gy, 64]
-            cr = spat[:, gy + 1][:, idx]
+        luma, cb, cr = upsampled_samples(spat, mode)
+    return _rgb_layout(bt601_planes(luma, cb, cr), raw)
 
-    y128 = luma + 128                                        # [M, gy, nn]
+
+def upsampled_samples(spat: torch.Tensor, mode: S.ModeSpec):
+    """Column-major int32 samples ``[M, g, 64]`` -> luma ``[M, gy, 64]``
+    and, for colour modes, each luma pixel's nearest Cb and Cr sample
+    (``[M, gy, 64]`` each; None for gray)."""
+    gy = mode.luma_slots
     if mode.ncomp == 1:
-        planes = [y128.clamp(0, 255)] * 3
+        return spat[:, :gy], None, None
+    idx = _chroma_index(mode).to(spat.device)
+    return spat[:, :gy], spat[:, gy][:, idx], spat[:, gy + 1][:, idx]
+
+
+def bt601_planes(luma: torch.Tensor, cb: Optional[torch.Tensor],
+                 cr: Optional[torch.Tensor]) -> torch.Tensor:
+    """Fixed-point BT.601 of int32 ``[M, gy, nn]`` samples (gray: cb = cr
+    = None, the luma in all three planes) -> uint8 ``[3, gy, nn, M]``.
+    int32 tensor arithmetic wraps like the spec's."""
+    y128 = luma + 128
+    if cb is None:
+        planes = [y128] * 3
     else:
         planes = [
             y128 + S.descale(S.FIX_CR_R * cr, S.COLOR_BITS),
@@ -201,7 +221,7 @@ def decode_mcus_reference(coeffs: torch.Tensor, qidx: torch.Tensor,
             y128 + S.descale(S.FIX_CB_B * cb, S.COLOR_BITS),
         ]
     rgb = torch.stack([p.clamp(0, 255) for p in planes]).to(torch.uint8)
-    return _rgb_layout(rgb.permute(0, 2, 3, 1).contiguous(), raw)
+    return rgb.permute(0, 2, 3, 1).contiguous()
 
 
 def _rgb_layout(raw_rgb: torch.Tensor, raw: bool) -> torch.Tensor:

@@ -34,9 +34,14 @@ def test_port_decodes_without_loading_jax(tmp_path):
         import pim_jpeg_decoder_tpu_torch as port
         import pim_jpeg_decoder_tpu_torch.cli
         import pim_jpeg_decoder_tpu_torch.ops._build
+        import pim_jpeg_decoder_tpu_torch.ops.stage_kernels
         import pim_jpeg_decoder_tpu_torch.runtime.batching
+        import pim_jpeg_decoder_tpu_torch.runtime.device_profile
+        import pim_jpeg_decoder_tpu_torch.tools.stage_profile
+        import pim_jpeg_decoder_tpu_torch.utils.devbench
         import torch
         from pim_jpeg_decoder_tpu.codec.encoder import encode_jpeg
+        from pim_jpeg_decoder_tpu.ops.specs import mode_for
         img = np.random.default_rng(0).integers(0, 256, (40, 48, 3),
                                                  dtype=np.uint8)
         data = encode_jpeg(img, sampling="4:2:0")
@@ -57,6 +62,16 @@ def test_port_decodes_without_loading_jax(tmp_path):
         rc = pim_jpeg_decoder_tpu_torch.cli.main([path, "--device", "cpu",
                                                   "--quiet", "--scale", "4"])
         assert rc == 0, rc
+        rc = pim_jpeg_decoder_tpu_torch.cli.main(
+            [path, "--device", "cpu", "--device-profile", "measure",
+             "--profile", {str(tmp_path / "trace")!r}])
+        assert rc == 0, rc
+        staged = pim_jpeg_decoder_tpu_torch.ops.stage_kernels
+        assert staged.decode_mcus_staged(
+            torch.zeros(2, 6, 64, dtype=torch.int8),
+            torch.zeros(2, dtype=torch.int32),
+            torch.ones(1, 6, 64, dtype=torch.int32),
+            mode_for((2, 2, 3))).shape == (2, 4, 64, 3)
         assert "jax" not in sys.modules, "jax was imported"
         print("OK")
     """)
@@ -119,7 +134,8 @@ def test_nvcc_command_targets_sm90a_under_the_gitignored_build_dir():
     compiles, link = _build.nvcc_commands(out)
     assert [cmd[-1] for cmd in compiles] == [
         os.path.join(PORT, "csrc", name)
-        for name in ("decode_kernel.cu", "raster_epilogue.cu")]
+        for name in ("decode_kernel.cu", "raster_epilogue.cu",
+                     "stage_kernels.cu")]
     for cmd in compiles:
         assert cmd[0] == "nvcc"
         i = cmd.index("-gencode")
@@ -146,6 +162,19 @@ def test_build_dir_follows_the_source_content(tmp_path, monkeypatch):
     assert first == _build.build_dir()
     (tmp_path / "k.cu").write_text("// two\n")
     assert _build.build_dir() != first
+
+
+def test_build_dir_follows_the_header_content(tmp_path, monkeypatch):
+    """A shared header is hashed with the sources: an edit to it is a new
+    build directory, never a stale library."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    first = _build.build_dir()
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _build.build_dir() != first
+    compiles, _ = _build.nvcc_commands(os.path.join(first, _build.LIB_NAME))
+    assert [cmd[-1] for cmd in compiles] == [str(tmp_path / "k.cu")]
 
 
 def test_missing_nvcc_raises_a_clear_error(monkeypatch):
