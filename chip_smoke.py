@@ -18,6 +18,9 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
    stages composed equal to the fused RGB kernel; the RGB kernels also
    against the NumPy oracle (full and scaled) on encoded images; the raster
    epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped;
+   the memory-floor, chroma-truerez and stacked kernels
+   (``csrc/kernel_opt.cu``) for the colour modes, both wires, both Ms, the
+   last two also equal to the fused RGB kernel;
 3. the main paths, each with the launch counts set to 0 just before it and
    read just after: ``cli.main`` on an ImageNet-val-like corpus (every BMP
    equal to the oracle raster, the same BMPs with ``--transport rgb`` and
@@ -31,13 +34,18 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
    scale 1 and 2, as uint8 and as bfloat16 normalised with the ImageNet
    statistics, every batch equal to the oracle rasters;
    ``decode_batch_crops`` of 224x224 random crops from 4:2:0 images of
-   three sizes, equal to slices of the oracle rasters;
+   three sizes, equal to slices of the oracle rasters; the experiment
+   tool ``tools.kernel_opt`` (every variant bit-exact, each of its three
+   kernels launched);
 4. kernel and plain-version times with CUDA events
    (``utils/devbench.seconds_per_launch``, 10 rotating inputs past the 50
    MB L2; median with min and max), the ``tools/stage_profile`` record
-   (staged sum, fused time, fusion ratio), the engine's end-to-end MP/s on
-   the corpus, the batch path's images/s and MP/s, and the device busy
-   share of one traced run of each.
+   (staged sum, fused time, fusion ratio), the ``tools.kernel_opt`` record
+   and rgb_kernel's GB/s as a share of its memory floor's (int16 and int8
+   wire, from that one run) and over the tool's launch sizes
+   (``kernel_opt.sweep``, 2,048 to 196,608 MCUs), the engine's end-to-end
+   MP/s on the corpus, the batch path's images/s and MP/s, and the device
+   busy share of one traced run of each.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -77,10 +85,20 @@ KERNELS = {
              "pim_jpeg_decoder_tpu/ops/stage_kernels.py:52"),
     "color": ("pim_jpeg_decoder_tpu_torch/csrc/stage_kernels.cu",
               "pim_jpeg_decoder_tpu/ops/stage_kernels.py:61"),
+    "memfloor": ("pim_jpeg_decoder_tpu_torch/csrc/kernel_opt.cu",
+                 "tools/kernel_opt.py:68"),
+    "truerez": ("pim_jpeg_decoder_tpu_torch/csrc/kernel_opt.cu",
+                "tools/kernel_opt.py:92"),
+    "stacked": ("pim_jpeg_decoder_tpu_torch/csrc/kernel_opt.cu",
+                "tools/kernel_opt.py:141"),
 }
 JSON_NAMES = {"raster": "raster_epilogue", "dequant": "stage_dequantize",
-              "idct": "stage_idct", "color": "stage_color"}
+              "idct": "stage_idct", "color": "stage_color",
+              "memfloor": "kernel_opt_memfloor",
+              "truerez": "kernel_opt_chroma_truerez",
+              "stacked": "kernel_opt_stacked"}
 STAGES = ("dequant", "idct", "color")
+KERNEL_OPT_COUNTERS = ("memfloor", "truerez", "stacked")
 IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
                      std=(58.395, 57.12, 57.375))
 
@@ -206,6 +224,9 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                     cases += 1
                 cases += stage_cases(torch, mode, x, qi, qp, max_err,
                                      f"{np.dtype(wire).name} M={m}")
+                if mode.ncomp == 3:
+                    cases += variant_cases(torch, mode, x, qi, qp, max_err,
+                                           f"{np.dtype(wire).name} M={m}")
     n_mcus = 0
     for header, coeffs, data in oracle_images:
         mode = S.mode_for(header.mode_key)
@@ -226,11 +247,13 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                      f"{mode.name} at scale {scale}")
         n_mcus += header.num_mcus
     n_epi = epilogue_cases(torch, dev, rng, max_err)
-    print(f"[2 kernels] {cases} decode and stage kernel-vs-plain cases "
-          f"byte-identical on the card (5 modes x i16/i8 x "
-          f"M=16384/1001-with-extremes x rgb/ycbcr/scaled 2,4,8 and "
-          f"dequant/idct/color (also on raw int16)/staged==fused; Q=16; "
-          f"tolerance 0); rgb and rgb_scaled "
+    print(f"[2 kernels] {cases} decode, stage and kernel_opt "
+          f"kernel-vs-plain cases byte-identical on the card (5 modes x "
+          f"i16/i8 x M=16384/1001-with-extremes x rgb/ycbcr/scaled 2,4,8 "
+          f"and dequant/idct/color (also on raw int16)/staged==fused, and "
+          f"for the 4 colour modes memfloor/truerez/stacked, truerez and "
+          f"stacked also == rgb kernel; Q=16; tolerance 0); rgb and "
+          f"rgb_scaled "
           f"(2/4/8) == NumPy oracle on {n_mcus} MCUs of "
           f"{len(oracle_images)} encoded images; {n_epi} raster-epilogue "
           f"cases byte-identical (5 modes x scale 1/2/4/8 x u8/f32/bf16/f16 "
@@ -267,6 +290,29 @@ def stage_cases(torch, mode, x, qi, qp, max_err, what: str) -> int:
     if not torch.equal(staged, fused):
         fail(f"decode_mcus_staged != decode_mcus on the card: {mode.name} "
              f"{what}")
+    return 5
+
+
+def variant_cases(torch, mode, x, qi, qp, max_err, what: str) -> int:
+    """The three kernels of ``csrc/kernel_opt.cu`` against their plain
+    versions on one batch, and the two decode variants against the fused
+    RGB kernel."""
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import KERNELS
+
+    fused = decode_mcus(x, qi, qp, mode, raw=True)
+    for name in KERNEL_OPT_COUNTERS:
+        kernel, plain = KERNELS[name]
+        got = kernel(x, qi, qp, mode)
+        want = plain(x, qi, qp, mode)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if got.shape != want.shape or err:
+            fail(f"{name} kernel != plain version: {mode.name} {what} "
+                 f"max|err|={err}")
+        if name != "memfloor" and not torch.equal(got, fused):
+            fail(f"{name} kernel != rgb kernel: {mode.name} {what}")
     return 5
 
 
@@ -641,6 +687,46 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
     return counts
 
 
+def phase_tool():
+    """``python -m pim_jpeg_decoder_tpu_torch.tools.kernel_opt`` in this
+    process, with the launch counts set to 0 just before it and read just
+    after: every variant bit-exact, each kernel_opt kernel launched, no
+    plain version on the card.  Returns the tool's JSON record and the
+    counts."""
+    import io
+
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        launch_counts, reset_launch_counts)
+    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
+
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = kernel_opt.main([])
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    if rc != 0:
+        fail(f"tools.kernel_opt exited {rc}")
+    record = json.loads(out.getvalue().splitlines()[-1])
+    if sorted(record) != sorted(kernel_opt.VARIANTS):
+        fail(f"tools.kernel_opt ran {sorted(record)}")
+    inexact = [n for n, r in record.items() if r["bit_exact"] is not True]
+    if inexact:
+        fail(f"tools.kernel_opt: not bit-exact: {inexact}")
+    if (min(counts[k] for k in KERNEL_OPT_COUNTERS) < 1
+            or counts["plain_on_cuda"]):
+        fail(f"tools.kernel_opt did not go through the kernel_opt kernels "
+             f"alone: {counts}")
+    print(f"[3 slice] tools.kernel_opt (4:2:0, M={kernel_opt.M}, Q="
+          f"{kernel_opt.Q}): exit 0 in {wall:.1f} s; {len(record)} variants "
+          f"({', '.join(record)}) bit-exact; launches "
+          + " ".join(f"{k}={counts[k]}" for k in (
+              "rgb", *KERNEL_OPT_COUNTERS, "plain_on_cuda")),
+          flush=True)
+    return record, counts
+
+
 # --- phase 4 -----------------------------------------------------------------
 
 def time_band(fn, bufs, runs: int = 30):
@@ -658,11 +744,61 @@ def us_band(band) -> str:
     return f"{med * 1e3:.1f} us (min {lo * 1e3:.1f}, max {hi * 1e3:.1f})"
 
 
+def floor_shares(record: dict, card: str) -> None:
+    """rgb_kernel against the layout-matched memory floor, from the
+    tool's one run (same call, same rotation): the floor's time over
+    rgb_kernel's is rgb_kernel's GB/s as a share of the floor's."""
+    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
+
+    print(f"[4 times] tools.kernel_opt record: {json.dumps(record)} | {card}",
+          flush=True)
+    m, mode = kernel_opt.M, kernel_opt.MODE
+    out_mb = 3 * mode.luma_slots * 64 * m / 1e6
+    for wire, nbytes, floor, prod in (("int16", 2, "memfloor", "prod"),
+                                      ("int8", 1, "memfloor_i8", "prod_i8")):
+        mb = m * mode.g * 64 * nbytes / 1e6 + out_mb
+        f_us, p_us = record[floor]["us"], record[prod]["us"]
+        print(f"[4 times] rgb_kernel vs its memory floor, 4:2:0 M={m} {wire} "
+              f"wire ({mb:.1f} MB): floor {f_us} us ({mb / f_us * 1e3:.0f} "
+              f"GB/s), rgb_kernel {p_us} us ({mb / p_us * 1e3:.0f} GB/s): "
+              f"{100 * f_us / p_us:.1f}% of the floor's GB/s | {card}",
+              flush=True)
+
+
+def floor_sweep(torch, card: str) -> None:
+    """``tools.kernel_opt.sweep()``: every variant at each launch size of
+    ``SWEEP_M``, each bit-exact, with rgb_kernel's share of its floor."""
+    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
+
+    t0 = time.monotonic()
+    table = kernel_opt.sweep()
+    torch.cuda.empty_cache()
+    mode = kernel_opt.MODE
+    for m, record in table.items():
+        inexact = [n for n, r in record.items() if r["bit_exact"] is not True]
+        if inexact:
+            fail(f"tools.kernel_opt sweep at M={m}: not bit-exact: {inexact}")
+        us = {n: r["us"] for n, r in record.items()}
+        mb = m * (mode.g * 64 * 2 + 3 * mode.luma_slots * 64) / 1e6
+        print(f"[4 times] kernel_opt sweep 4:2:0 M={m} ({-(-m // 64)} blocks "
+              f"of 64), us int16 [int8]: floor {us['memfloor']} "
+              f"[{us['memfloor_i8']}] ({mb / us['memfloor'] * 1e3:.0f} GB/s "
+              f"of {mb:.1f} MB int16), rgb_kernel {us['prod']} "
+              f"[{us['prod_i8']}], truerez {us['chroma_truerez']}, stacked "
+              f"{us['stacked']}; rgb_kernel at "
+              f"{100 * us['memfloor'] / us['prod']:.1f}% "
+              f"[{100 * us['memfloor_i8'] / us['prod_i8']:.1f}%] of the "
+              f"floor's GB/s | {card}", flush=True)
+    print(f"[4 times] kernel_opt sweep: {len(table)} launch sizes, every "
+          f"variant bit-exact, in {time.monotonic() - t0:.1f} s", flush=True)
+
+
 def phase_times(torch, dev, card: str, paths) -> dict:
     from pim_jpeg_decoder_tpu.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         coeffs_to_device, decode_mcus, decode_mcus_reference,
         qpool_to_device)
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import KERNELS
     from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
     from pim_jpeg_decoder_tpu_torch.tools.stage_profile import profile
 
@@ -678,16 +814,23 @@ def phase_times(torch, dev, card: str, paths) -> dict:
                          torch.from_numpy(qi).to(dev),
                          qpool_to_device(qp, dev)))
         mb_in = bufs[0][0].numel() * bufs[0][0].element_size() / 1e6
-        for name in ("rgb", "ycbcr"):
-            yc = name == "ycbcr"
-            k = time_band(lambda b: decode_mcus(*b, mode, raw=True,
-                                                ycbcr=yc), bufs)
-            p = time_band(lambda b: decode_mcus_reference(
-                *b, mode, raw=True, ycbcr=yc), bufs, runs=20)
+        cases = {name: (lambda b, yc=name == "ycbcr": decode_mcus(
+                            *b, mode, raw=True, ycbcr=yc),
+                        lambda b, yc=name == "ycbcr": decode_mcus_reference(
+                            *b, mode, raw=True, ycbcr=yc))
+                 for name in ("rgb", "ycbcr")}
+        for name in KERNEL_OPT_COUNTERS:
+            kernel, plain = KERNELS[name]
+            cases[name] = (lambda b, f=kernel: f(*b, mode),
+                           lambda b, f=plain: f(*b, mode))
+        for name, (kernel, plain) in cases.items():
+            k = time_band(kernel, bufs)
+            p = time_band(plain, bufs, runs=20)
             wname = np.dtype(wire).name
             if wire is np.int8:
                 times[name] = (k[0], p[0])
-            mb_out = (mode.g if yc else 3 * mode.luma_slots) * 64 * m / 1e6
+            mb_out = (mode.g if name == "ycbcr"
+                      else 3 * mode.luma_slots) * 64 * m / 1e6
             print(f"[4 times] {name} kernel 4:2:0 M={m} {wname} wire: "
                   f"{us_band(k)}/launch ({(mb_in + mb_out) / k[0]:.0f} GB/s "
                   f"of {mb_in + mb_out:.1f} MB); plain PyTorch {us_band(p)};"
@@ -945,6 +1088,10 @@ def main() -> int:
             {1: [oracles[p] for p in imagenet],
              2: [scaled_oracles[p] for p in imagenet]},
             crop_set).items() if k in ("rgb_scaled", "raster")})
+        record, tool_counts = phase_tool()
+        counts.update({k: tool_counts[k] for k in KERNEL_OPT_COUNTERS})
+        floor_shares(record, card)
+        floor_sweep(torch, card)
         times = phase_times(torch, dev, card, paths)
         phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
                           times)

@@ -1,6 +1,7 @@
-// Device helpers shared by the decode kernels (decode_kernel.cu) and the
-// unfused stage kernels (stage_kernels.cu): the integer spec of
-// ops/specs.py and ops/idct_math.py, bit for bit.
+// Device helpers shared by the decode kernels (decode_kernel.cu), the
+// unfused stage kernels (stage_kernels.cu) and the experiment kernels
+// (kernel_opt.cu): the integer spec of ops/specs.py and ops/idct_math.py,
+// bit for bit, and the RGB kernels' one store path (store_rgb).
 //
 // Signed overflow is undefined in C++, while the spec relies on int32
 // two's-complement wrap (dequantized coefficients at the DEQUANT_CLAMP
@@ -101,9 +102,30 @@ __device__ __forceinline__ void load_block(const T* __restrict__ src,
   }
 }
 
-// Dequantized coefficients of block (m, s), natural order (v*8 + u).  An
-// out-of-range qidx decodes against a zero quantizer (as the TPU kernel's
-// one-hot gather does) instead of reading out of bounds.
+// The 64 quantizers of block (m, s) in the int32 pool: row qidx[m], or
+// row 0 with ok = false when qidx[m] is out of range, and that block then
+// decodes against a zero quantizer (as the TPU kernel's one-hot gather
+// does) instead of reading out of bounds.  The row is always a valid
+// address, so callers load unconditionally and select `ok ? load : 0`;
+// a null row in its place makes the loads conditional, and the RGB
+// kernels slower on an H100 (PERF.md).
+template <int G>
+__device__ __forceinline__ const int32_t* quant_row(
+    const int32_t* __restrict__ qidx, const int32_t* __restrict__ qpool,
+    int num_q, long long m, int s, bool& ok) {
+  const int qi = __ldg(qidx + m);
+  ok = static_cast<unsigned>(qi) < static_cast<unsigned>(num_q);
+  return qpool + (static_cast<size_t>(ok ? qi : 0) * G + s) * 64;
+}
+
+// One dequantized coefficient: c * q, wrapped, clamped to the int16 range.
+__device__ __forceinline__ uint32_t dequant(int32_t c, uint32_t q) {
+  const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(c) * q);
+  return static_cast<uint32_t>(min(max(d, -DEQUANT_CLAMP - 1),
+                                   DEQUANT_CLAMP));
+}
+
+// Dequantized coefficients of block (m, s), natural order (v*8 + u).
 template <typename T, int G>
 __device__ __forceinline__ void dequant_block(
     const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
@@ -111,21 +133,17 @@ __device__ __forceinline__ void dequant_block(
     uint32_t (&deq)[64]) {
   int32_t c[64];
   load_block<T>(coeffs + (static_cast<size_t>(m) * G + s) * 64, c);
-  const int qi = __ldg(qidx + m);
-  const bool q_ok = static_cast<unsigned>(qi) < static_cast<unsigned>(num_q);
-  const int4* qrow = reinterpret_cast<const int4*>(
-      qpool + (static_cast<size_t>(q_ok ? qi : 0) * G + s) * 64);
+  bool ok;
+  const int4* qrow =
+      reinterpret_cast<const int4*>(quant_row<G>(qidx, qpool, num_q, m, s, ok));
 
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int4 q = q_ok ? __ldg(qrow + i) : make_int4(0, 0, 0, 0);
+    const int4 qv = ok ? __ldg(qrow + i) : make_int4(0, 0, 0, 0);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int k = 4 * i + j;
-      const uint32_t qk = static_cast<uint32_t>(element<int32_t>(q, j));
-      int32_t d = static_cast<int32_t>(static_cast<uint32_t>(c[k]) * qk);
-      d = min(max(d, -DEQUANT_CLAMP - 1), DEQUANT_CLAMP);
-      deq[k] = static_cast<uint32_t>(d);
+      deq[4 * i + j] = dequant(
+          c[4 * i + j], static_cast<uint32_t>(element<int32_t>(qv, j)));
     }
   }
 }
@@ -182,6 +200,49 @@ __device__ __forceinline__ void bt601(int32_t y, int32_t cb, int32_t cr,
   g = to_u8(y128 + descale_color(static_cast<uint32_t>(FIX_CB_G) * ucb +
                                  static_cast<uint32_t>(FIX_CR_G) * ucr));
   b = to_u8(y128 + descale_color(static_cast<uint32_t>(FIX_CB_B) * ucb));
+}
+
+// Index (col*8 + row) of the nearest chroma sample of luma pixel pix
+// (px*8 + py) of luma slot sl, in a column-major chroma block at H x V
+// sampling (decode_kernel.py:_upsample; slot (qv, qh) = (sl / H, sl % H)).
+template <int H, int V>
+__device__ __forceinline__ int chroma_pix(int sl, int pix) {
+  const int px = pix >> 3, py = pix & 7;
+  const int row = (sl / H) * (8 / V) + py / V;
+  const int col = (sl % H) * (8 / H) + px / H;
+  return col * 8 + row;
+}
+
+// The RGB kernels' store: a block's TS MCUs of uint8 [3, GY, NPIX, M], each
+// byte written once, with NT threads striding over (slot, pixel, MCU), the
+// MCU index fastest, so a warp stores consecutive bytes of each plane.
+// rgb(sl, pix, mj, r, g, b) gives pixel pix of luma slot sl of the block's
+// MCU mj; MCUs at or past num_mcus are skipped.
+template <int GY, int NPIX, int TS, int NT, typename F>
+__device__ __forceinline__ void store_rgb(uint8_t* __restrict__ out,
+                                          long long m0, long long num_mcus,
+                                          F rgb) {
+  const long long left = num_mcus - m0;
+  const int valid = left < TS ? static_cast<int>(left) : TS;
+  const size_t plane = static_cast<size_t>(GY) * NPIX * num_mcus;
+  for (int j = threadIdx.x; j < GY * NPIX * TS; j += NT) {
+    const int mj = j % TS;
+    if (mj >= valid) continue;
+    const int pix = (j / TS) % NPIX;
+    const int sl = j / (TS * NPIX);
+    uint8_t r, g, b;
+    rgb(sl, pix, mj, r, g, b);
+    const size_t o =
+        (static_cast<size_t>(sl) * NPIX + pix) * num_mcus + m0 + mj;
+    out[o] = r;
+    out[plane + o] = g;
+    out[2 * plane + o] = b;
+  }
+}
+
+// Blocks of per_block items covering n.
+inline unsigned grid(long long n, int per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
 }  // namespace

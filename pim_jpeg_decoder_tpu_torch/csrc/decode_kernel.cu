@@ -34,8 +34,9 @@
 // The ragged end (M not a multiple of TILE) is masked in the kernel.
 //
 // Shared helpers (constants, the Loeffler pass, block loads, dequantize,
-// the 2-pass IDCT, BT.601) live in decode_common.cuh, with the reasons
-// for their wrap-around uint32_t arithmetic.
+// the 2-pass IDCT, BT.601, the chroma index and the RGB store loop) live
+// in decode_common.cuh, with the reasons for their wrap-around uint32_t
+// arithmetic.
 
 #include "decode_common.cuh"
 
@@ -179,32 +180,18 @@ rgb_kernel(const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
   }
   __syncthreads();
 
-  const long long left = num_mcus - m0;
-  const int valid = left < TILE ? static_cast<int>(left) : TILE;
-  const size_t plane = static_cast<size_t>(GY) * 64 * num_mcus;
-  for (int j = threadIdx.x; j < GY * 64 * TILE; j += G * TILE) {
-    const int mj = j % TILE;
-    if (mj >= valid) continue;
-    const int pix = (j / TILE) % 64;
-    const int sl = j / (TILE * 64);
-    const int32_t y = samples[(sl * 64 + pix) * TILE + mj];
-    uint8_t r, g, b;
-    if (NC == 1) {
-      r = g = b = static_cast<uint8_t>(y + 128);
-    } else {
-      const int px = pix >> 3, py = pix & 7;
-      const int row = (sl / H) * (8 / V) + py / V;
-      const int col = (sl % H) * (8 / H) + px / H;
-      const int cpix = col * 8 + row;
-      const int32_t cb = samples[(GY * 64 + cpix) * TILE + mj];
-      const int32_t cr = samples[((GY + 1) * 64 + cpix) * TILE + mj];
-      bt601(y, cb, cr, r, g, b);
-    }
-    const size_t o = (static_cast<size_t>(sl) * 64 + pix) * num_mcus + m0 + mj;
-    out[o] = r;
-    out[plane + o] = g;
-    out[2 * plane + o] = b;
-  }
+  store_rgb<GY, 64, TILE, G * TILE>(
+      out, m0, num_mcus,
+      [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
+        const int32_t y = samples[(sl * 64 + pix) * TILE + mj];
+        if (NC == 1) {
+          r = g = b = static_cast<uint8_t>(y + 128);
+        } else {
+          const int c = chroma_pix<H, V>(sl, pix);
+          bt601(y, samples[(GY * 64 + c) * TILE + mj],
+                samples[((GY + 1) * 64 + c) * TILE + mj], r, g, b);
+        }
+      });
 }
 
 // Scaled decode at 1/(8/N): the same thread layout and shared-memory
@@ -252,31 +239,20 @@ rgb_scaled_kernel(const T* __restrict__ coeffs,
   }
   __syncthreads();
 
-  const long long left = num_mcus - m0;
-  const int valid = left < TILE ? static_cast<int>(left) : TILE;
-  const size_t plane = static_cast<size_t>(GY) * NN * num_mcus;
-  for (int j = threadIdx.x; j < GY * NN * TILE; j += G * TILE) {
-    const int mj = j % TILE;
-    if (mj >= valid) continue;
-    const int pix = (j / TILE) % NN;
-    const int sl = j / (TILE * NN);
-    const int32_t y = samples[(sl * NN + pix) * TILE + mj];
-    uint8_t r, g, b;
-    if (NC == 1) {
-      r = g = b = to_u8(y + 128);
-    } else {
-      const int row = (sl / H) * N + pix % N;
-      const int col = (sl % H) * N + pix / N;
-      const int cpix = GY * NN + col * CY + row;
-      const int32_t cb = samples[cpix * TILE + mj];
-      const int32_t cr = samples[(cpix + CNN) * TILE + mj];
-      bt601(y, cb, cr, r, g, b);
-    }
-    const size_t o = (static_cast<size_t>(sl) * NN + pix) * num_mcus + m0 + mj;
-    out[o] = r;
-    out[plane + o] = g;
-    out[2 * plane + o] = b;
-  }
+  store_rgb<GY, NN, TILE, G * TILE>(
+      out, m0, num_mcus,
+      [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
+        const int32_t y = samples[(sl * NN + pix) * TILE + mj];
+        if (NC == 1) {
+          r = g = b = to_u8(y + 128);
+        } else {
+          const int row = (sl / H) * N + pix % N;
+          const int col = (sl % H) * N + pix / N;
+          const int cpix = GY * NN + col * CY + row;
+          bt601(y, samples[cpix * TILE + mj],
+                samples[(cpix + CNN) * TILE + mj], r, g, b);
+        }
+      });
 }
 
 struct Args {
@@ -311,9 +287,7 @@ bool launch(const Args& a, bool ycbcr, int scale) {
   } else {
     return false;
   }
-  const unsigned blocks =
-      static_cast<unsigned>((a.num_mcus + TILE - 1) / TILE);
-  kernel<<<blocks, G * TILE, 0, a.stream>>>(
+  kernel<<<grid(a.num_mcus, TILE), G * TILE, 0, a.stream>>>(
       static_cast<const T*>(a.coeffs), a.qidx, a.qpool, a.num_q, a.out,
       a.num_mcus);
   return true;

@@ -120,35 +120,22 @@ color_stage_kernel(const int16_t* __restrict__ spat,
   }
   __syncthreads();
 
-  const size_t plane = static_cast<size_t>(GY) * 64 * num_mcus;
-  for (int j = threadIdx.x; j < GY * 64 * COLOR_TILE; j += blockDim.x) {
-    const int mj = j % COLOR_TILE;
-    if (mj >= valid) continue;
-    const int pix = (j / COLOR_TILE) % 64;   // px*8 + py
-    const int sl = j / (COLOR_TILE * 64);
-    const int px = pix >> 3, py = pix & 7;
-    const uint32_t* mcu = tile + mj * STRIDE;
-    const int32_t y = sample(mcu, sl * 64 + py * 8 + px);
-    uint8_t r, g, b;
-    if (NC == 1) {
-      r = g = b = to_u8(y + 128);
-    } else {
-      // decode_kernel.py:_upsample: slot (qv, qh) = (sl / H, sl % H).
-      const int row = (sl / H) * (8 / V) + py / V;
-      const int col = (sl % H) * (8 / H) + px / H;
-      const int32_t cb = sample(mcu, GY * 64 + row * 8 + col);
-      const int32_t cr = sample(mcu, (GY + 1) * 64 + row * 8 + col);
-      bt601(y, cb, cr, r, g, b);
-    }
-    const size_t o = (static_cast<size_t>(sl) * 64 + pix) * num_mcus + m0 + mj;
-    out[o] = r;
-    out[plane + o] = g;
-    out[2 * plane + o] = b;
-  }
-}
-
-unsigned grid(long long n, int per_block) {
-  return static_cast<unsigned>((n + per_block - 1) / per_block);
+  store_rgb<GY, 64, COLOR_TILE, G * COLOR_TILE>(
+      out, m0, num_mcus,
+      [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
+        const int px = pix >> 3, py = pix & 7;   // pix = px*8 + py
+        const uint32_t* mcu = tile + mj * STRIDE;
+        const int32_t y = sample(mcu, sl * 64 + py * 8 + px);
+        if (NC == 1) {
+          r = g = b = to_u8(y + 128);
+        } else {
+          // chroma_pix's sample, row-major here: row*8 + col.
+          const int c = chroma_pix<H, V>(sl, pix);
+          const int rm = (c & 7) * 8 + (c >> 3);
+          bt601(y, sample(mcu, GY * 64 + rm), sample(mcu, (GY + 1) * 64 + rm),
+                r, g, b);
+        }
+      });
 }
 
 template <typename T, int G>

@@ -123,6 +123,9 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_decode_rgb, decode + [ptr]),
                     (lib.pjt_cuda_decode_ycbcr, decode + [ptr]),
                     (lib.pjt_cuda_decode_rgb_scaled, decode + [i32, ptr]),
+                    (lib.pjt_cuda_memfloor, decode + [ptr]),
+                    (lib.pjt_cuda_decode_rgb_truerez, decode + [ptr]),
+                    (lib.pjt_cuda_decode_rgb_stacked, decode + [ptr]),
                     (lib.pjt_cuda_raster_epilogue,
                      [ptr, ctypes.c_int64] + [i32] * 8 + [ptr, ptr, i32]
                      + [f32] * 6 + [ptr, ptr]),

@@ -41,6 +41,7 @@ from pim_jpeg_decoder_tpu.ops.idct_math import idct_1d
 # claims to use the kernels must show 0 there).
 _counts: Dict[str, int] = {"rgb": 0, "ycbcr": 0, "rgb_scaled": 0,
                            "raster": 0, "dequant": 0, "idct": 0, "color": 0,
+                           "memfloor": 0, "truerez": 0, "stacked": 0,
                            "plain_on_cuda": 0}
 _counts_lock = threading.Lock()
 

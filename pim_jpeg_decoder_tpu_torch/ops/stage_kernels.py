@@ -101,12 +101,14 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def _launch(name: str, fn, args, out: torch.Tensor, what: str) -> None:
+    """``fn(*args, stream)`` on ``out``'s current stream, counted under the
+    launch counter ``name``; raises if the launch failed."""
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA {name} stage kernel ({what}) failed to "
-                           f"launch: cudaError {rc}")
+        raise RuntimeError(f"CUDA {name} kernel ({what}) failed to launch: "
+                           f"cudaError {rc}")
     _count(name)
 
 

@@ -34,9 +34,11 @@ def test_port_decodes_without_loading_jax(tmp_path):
         import pim_jpeg_decoder_tpu_torch as port
         import pim_jpeg_decoder_tpu_torch.cli
         import pim_jpeg_decoder_tpu_torch.ops._build
+        import pim_jpeg_decoder_tpu_torch.ops.kernel_variants
         import pim_jpeg_decoder_tpu_torch.ops.stage_kernels
         import pim_jpeg_decoder_tpu_torch.runtime.batching
         import pim_jpeg_decoder_tpu_torch.runtime.device_profile
+        import pim_jpeg_decoder_tpu_torch.tools.kernel_opt
         import pim_jpeg_decoder_tpu_torch.tools.stage_profile
         import pim_jpeg_decoder_tpu_torch.utils.devbench
         import torch
@@ -72,6 +74,13 @@ def test_port_decodes_without_loading_jax(tmp_path):
             torch.zeros(2, dtype=torch.int32),
             torch.ones(1, 6, 64, dtype=torch.int32),
             mode_for((2, 2, 3))).shape == (2, 4, 64, 3)
+        variants = pim_jpeg_decoder_tpu_torch.ops.kernel_variants
+        for fn in (variants.memfloor, variants.rgb_truerez,
+                   variants.rgb_stacked):
+            assert fn(torch.zeros(2, 6, 64, dtype=torch.int16),
+                      torch.zeros(2, dtype=torch.int32),
+                      torch.ones(1, 6, 64, dtype=torch.int32),
+                      mode_for((2, 2, 3))).shape == (3, 4, 64, 2)
         assert "jax" not in sys.modules, "jax was imported"
         print("OK")
     """)
@@ -134,8 +143,8 @@ def test_nvcc_command_targets_sm90a_under_the_gitignored_build_dir():
     compiles, link = _build.nvcc_commands(out)
     assert [cmd[-1] for cmd in compiles] == [
         os.path.join(PORT, "csrc", name)
-        for name in ("decode_kernel.cu", "raster_epilogue.cu",
-                     "stage_kernels.cu")]
+        for name in ("decode_kernel.cu", "kernel_opt.cu",
+                     "raster_epilogue.cu", "stage_kernels.cu")]
     for cmd in compiles:
         assert cmd[0] == "nvcc"
         i = cmd.index("-gencode")
