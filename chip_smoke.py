@@ -5,7 +5,8 @@
 
 Run from the root of a checkout on a machine with a CUDA card (nvcc under
 PATH or /usr/local/cuda/bin, g++ for the host library).  Uses torch, numpy
-and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
+and ``pim_jpeg_decoder_tpu_torch`` only (its own host layer, oracle and
+encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
 
 1. device: card name and power limit, build of ``csrc/*.cu``, native host
    library present;
@@ -20,7 +21,11 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
    epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped;
    the memory-floor, chroma-truerez and stacked kernels
    (``csrc/kernel_opt.cu``) for the colour modes, both wires, both Ms, the
-   last two also equal to the fused RGB kernel;
+   last two also equal to the fused RGB kernel; the tensor-core IDCT
+   kernels (``csrc/mxu_idct.cu``: mxu2pass with pieces 1 and 2, mxu64) at
+   M=16,384 and 1,001 of int16 in [-2048, 2048) within ``MXU_TOLERANCE``
+   of their float32 plain versions (TF32 operands; pieces 2 bit-exact);
+   the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0;
 3. the main paths, each with the launch counts set to 0 just before it and
    read just after: ``cli.main`` on an ImageNet-val-like corpus (every BMP
    equal to the oracle raster, the same BMPs with ``--transport rgb`` and
@@ -36,10 +41,16 @@ and the JAX-free host layer of ``pim_jpeg_decoder_tpu`` only.  Phases:
    ``decode_batch_crops`` of 224x224 random crops from 4:2:0 images of
    three sizes, equal to slices of the oracle rasters; the experiment
    tool ``tools.kernel_opt`` (every variant bit-exact, each of its three
-   kernels launched);
+   kernels launched); the tools ``tools.mxu_idct_ab`` (the butterfly and
+   the three tensor-core variants, each within its tolerance) and
+   ``tools.vlc_bench`` (exact), their kernels launched;
 4. kernel and plain-version times with CUDA events
    (``utils/devbench.seconds_per_launch``, 10 rotating inputs past the 50
-   MB L2; median with min and max), the ``tools/stage_profile`` record
+   MB L2; median with min and max), each kernel's bound (the larger of its
+   bytes over 3.35 TB/s and its operations over their peak rate) and, for
+   the tensor-core IDCT, ``torch.matmul`` yardsticks with TF32 allowed;
+   the IDCT A/B (butterfly, mxu2pass, mxu2pass4, mxu64) at the tool's
+   geometry and the VLC kernel; the ``tools/stage_profile`` record
    (staged sum, fused time, fusion ratio), the ``tools.kernel_opt`` record
    and rgb_kernel's GB/s as a share of its memory floor's (int16 and int8
    wire, from that one run) and over the tool's launch sizes
@@ -91,16 +102,84 @@ KERNELS = {
                 "tools/kernel_opt.py:92"),
     "stacked": ("pim_jpeg_decoder_tpu_torch/csrc/kernel_opt.cu",
                 "tools/kernel_opt.py:141"),
+    "mxu2pass": ("pim_jpeg_decoder_tpu_torch/csrc/mxu_idct.cu",
+                 "tools/mxu_idct_ab.py:58"),
+    "mxu64": ("pim_jpeg_decoder_tpu_torch/csrc/mxu_idct.cu",
+              "tools/mxu_idct_ab.py:104"),
+    "vlc": ("pim_jpeg_decoder_tpu_torch/csrc/vlc.cu",
+            "tools/tpu_vlc_bench.py:38"),
 }
 JSON_NAMES = {"raster": "raster_epilogue", "dequant": "stage_dequantize",
               "idct": "stage_idct", "color": "stage_color",
               "memfloor": "kernel_opt_memfloor",
               "truerez": "kernel_opt_chroma_truerez",
-              "stacked": "kernel_opt_stacked"}
+              "stacked": "kernel_opt_stacked",
+              "mxu2pass": "mxu_idct_2pass", "mxu64": "mxu_idct_64",
+              "vlc": "vlc_symbol_loop"}
 STAGES = ("dequant", "idct", "color")
 KERNEL_OPT_COUNTERS = ("memfloor", "truerez", "stacked")
 IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
                      std=(58.395, 57.12, 57.375))
+# TF32 tensor-core IDCT against its float32 plain version: name -> (largest
+# |difference|, largest share of samples that differ).  TF32 keeps 11
+# significant bits: mxu2pass rounds its 12-bit basis entries, mxu64 its
+# 24-bit ones; mxu2pass4's 8-bit pieces are exact, so it is bit-exact.
+MXU_TOLERANCE = {"mxu2pass": (2, 0.04), "mxu2pass4": (0, 0.0),
+                 "mxu64": (2, 0.03)}
+
+# --- the least time the card could take (bound_ms) ----------------------------
+# Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s, TF32
+# and float32 (outside the tensor cores) FLOP/s.  The sheet gives no
+# integer rate.  Its 67 TFLOP/s count an FMA as two operations on the 128
+# lanes an SM issues to each clock (4 schedulers, one warp instruction
+# each); no instruction mix issues more, so integer operations peak at half
+# of it (integer multiplies and adds share that issue rate).
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS = 495e12
+FP32_FLOPS = 67e12
+INT32_OPS = FP32_FLOPS / 2
+# Integer operations of the decode spec, counted from its code: one
+# idct_1d pass is 56 (16 even part, 24 odd part, 8 adds and 8 shifts out),
+# a block 16 passes and 2 x 64 clamps; dequantize a multiply and 2 clamps a
+# coefficient; BT.601 (bt601_planes) 21 an RGB pixel (level shift 1; R, B:
+# multiply, bias, shift, add, 2 clamps; G: 2 multiplies, 2 adds, shift,
+# add, 2 clamps).
+IDCT_BLOCK_OPS = 16 * 56 + 2 * 64
+DEQUANT_BLOCK_OPS = 3 * 64
+COLOR_PIXEL_OPS = 21
+# The VLC loop's dependency chain a symbol: two dependent shared-memory
+# loads (the window words, then the table entry) and at least 6 dependent
+# integer operations (window funnel, probe, entry fields, advance, word
+# index and address), at assumed latencies (not measured: shared load 23
+# cycles, integer operation 4), over the card's maximum SM clock.
+VLC_CYCLES_PER_SYMBOL = 2 * 23 + 6 * 4
+
+
+def reduced_idct_ops(ny: int, nx: int) -> int:
+    """Integer operations of one reduced (matrix) IDCT to ny x nx samples:
+    each output a sum of products over its pass (2n - 1), a descale (2),
+    then 2 clamps (decode_kernel._reduced_pass)."""
+    return nx * ny * (2 * ny + 1) + ny * nx * (2 * nx + 1) + 2 * ny * nx
+
+
+def bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
+    rate and the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
+
+
+def timing(kernel_band, plain_band, bound_pair, library_ms=None) -> dict:
+    """The kernels-line numbers of one kernel from this run."""
+    return {"ms": kernel_band[0], "plain_ms": plain_band[0],
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+            "library_ms": library_ms}
+
+
+def bound_note(bound_pair) -> str:
+    return f"bound {bound_pair[0] * 1e3:.2f} us ({bound_pair[1]})"
 
 
 def fail(msg: str) -> None:
@@ -121,7 +200,7 @@ def card_line() -> str:
 # --- phase 1 -----------------------------------------------------------------
 
 def phase_device(torch, card: str) -> None:
-    from pim_jpeg_decoder_tpu.native import native_available
+    from pim_jpeg_decoder_tpu_torch.native import native_available
     from pim_jpeg_decoder_tpu_torch.ops import _build
 
     print(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card}"
@@ -180,16 +259,16 @@ def scaled_oracle(data: bytes, scale: int) -> np.ndarray:
     decoder in place of the pure-Python one (same coefficients, faster)."""
     from unittest import mock
 
-    from pim_jpeg_decoder_tpu.native import decode_scan_native
-    from pim_jpeg_decoder_tpu.oracle import decoder
+    from pim_jpeg_decoder_tpu_torch.native import decode_scan_native
+    from pim_jpeg_decoder_tpu_torch.oracle import decoder
 
     with mock.patch.object(decoder, "decode_scan", decode_scan_native):
         return decoder.decode_scaled_oracle(data, scale)
 
 
 def phase_kernels(torch, dev, oracle_images) -> dict:
-    from pim_jpeg_decoder_tpu.ops import specs as S
-    from pim_jpeg_decoder_tpu.oracle.decoder import mcu_rgb_from_coeffs
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.oracle.decoder import mcu_rgb_from_coeffs
     from pim_jpeg_decoder_tpu_torch.models.pipeline import (
         assemble_raster_raw_scaled, build_qpool)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
@@ -247,6 +326,8 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                      f"{mode.name} at scale {scale}")
         n_mcus += header.num_mcus
     n_epi = epilogue_cases(torch, dev, rng, max_err)
+    mxu_line = mxu_cases(torch, dev, rng, max_err)
+    vlc_line = vlc_cases(torch, dev, max_err)
     print(f"[2 kernels] {cases} decode, stage and kernel_opt "
           f"kernel-vs-plain cases byte-identical on the card (5 modes x "
           f"i16/i8 x M=16384/1001-with-extremes x rgb/ycbcr/scaled 2,4,8 "
@@ -258,7 +339,61 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
           f"{len(oracle_images)} encoded images; {n_epi} raster-epilogue "
           f"cases byte-identical (5 modes x scale 1/2/4/8 x u8/f32/bf16/f16 "
           f"x full/cropped)", flush=True)
+    print(f"[2 kernels] {mxu_line}", flush=True)
+    print(f"[2 kernels] {vlc_line}", flush=True)
     return max_err
+
+
+def mxu_cases(torch, dev, rng, max_err) -> str:
+    """The tensor-core IDCT kernels against their float32 plain versions
+    on the card, every ``pieces``, at M=16,384 and an odd M=1,001 of the
+    tool's draw (int16 in [-2048, 2048)), within ``MXU_TOLERANCE``."""
+    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
+
+    fns = mxu_idct_ab.variant_fns()
+    notes = []
+    for m in (16384, 1001):
+        deq = torch.from_numpy(rng.integers(
+            -2048, 2048, (m, 6, 64)).astype(np.int16)).to(dev)
+        for name, (tol, share_tol) in MXU_TOLERANCE.items():
+            kernel, plain = fns[name]
+            got, want = kernel(deq), plain(deq)
+            torch.cuda.synchronize()
+            d = mxu_idct_ab.difference(got, want)
+            counter = mxu_idct_ab.VARIANTS[name]
+            max_err[counter] = max(max_err[counter], d["max_abs_diff"])
+            if (got.shape != want.shape or d["max_abs_diff"] > tol
+                    or d["share_diff"] > share_tol):
+                fail(f"{name} kernel vs its float32 plain version at M={m}: "
+                     f"max|diff| {d['max_abs_diff']} (at most {tol}), share "
+                     f"{d['share_diff']:.5f} (at most {share_tol})")
+            notes.append(f"{name} M={m}: max|diff| {d['max_abs_diff']}, "
+                         f"share {d['share_diff']:.5f}")
+    return ("mxu_idct kernels (TF32) vs float32 plain versions, tool's draw "
+            "(tolerance max|diff| <= 2 in <= 4% / 0 / <= 2 in <= 3%): "
+            + "; ".join(notes))
+
+
+def vlc_cases(torch, dev, max_err) -> str:
+    """The VLC kernel against its plain version on the card: the tool's
+    bitstream and table at five seeds, [acc, nsym, bitpos] identical."""
+    from pim_jpeg_decoder_tpu_torch.ops.vlc import vlc, vlc_reference
+    from pim_jpeg_decoder_tpu_torch.tools.vlc_bench import make_inputs
+
+    data, lut = (torch.from_numpy(a).to(dev) for a in make_inputs())
+    outs = []
+    for seed in range(5):
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        got, want = vlc(s, data, lut), vlc_reference(s, data, lut)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err["vlc"] = max(max_err["vlc"], err)
+        if err:
+            fail(f"vlc kernel {got.tolist()} != plain version "
+                 f"{want.tolist()} at seed {seed}")
+        outs.append(got.tolist())
+    return (f"vlc kernel == plain version at seeds 0-4 (tolerance 0): "
+            f"[acc, nsym, bitpos] {outs}")
 
 
 def stage_cases(torch, mode, x, qi, qp, max_err, what: str) -> int:
@@ -321,7 +456,7 @@ def epilogue_cases(torch, dev, rng, max_err) -> int:
     MCUs (the last MCU row and column cut by the output size), and crops
     with random origins, some out of range (clamped as dynamic_slice
     clamps)."""
-    from pim_jpeg_decoder_tpu.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         raster_epilogue, raster_epilogue_reference)
@@ -394,7 +529,7 @@ def corpus_kwargs():
 
 
 def build_corpus(root: str):
-    from pim_jpeg_decoder_tpu.codec.encoder import encode_jpeg
+    from pim_jpeg_decoder_tpu_torch.codec.encoder import encode_jpeg
 
     rng = np.random.default_rng(SEED + 1)
     paths = []
@@ -408,10 +543,10 @@ def build_corpus(root: str):
 
 
 def oracle_raster(data: bytes):
-    from pim_jpeg_decoder_tpu.codec.scanner import scan_jpeg
-    from pim_jpeg_decoder_tpu.native import decode_scan_native
-    from pim_jpeg_decoder_tpu.oracle.decoder import (assemble_raster,
-                                                     mcu_rgb_from_coeffs)
+    from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
+    from pim_jpeg_decoder_tpu_torch.native import decode_scan_native
+    from pim_jpeg_decoder_tpu_torch.oracle.decoder import (
+        assemble_raster, mcu_rgb_from_coeffs)
 
     header = scan_jpeg(data)
     coeffs = decode_scan_native(header)
@@ -442,7 +577,7 @@ def env(name: str, value: str):
 
 
 def phase_slice(dev, paths, oracles, scaled_oracles) -> dict:
-    from pim_jpeg_decoder_tpu.io.bmp import read_bmp
+    from pim_jpeg_decoder_tpu_torch.io.bmp import read_bmp
     from pim_jpeg_decoder_tpu_torch.models.pipeline import output_path
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         launch_counts, reset_launch_counts)
@@ -727,6 +862,53 @@ def phase_tool():
     return record, counts
 
 
+def phase_ab_tools() -> dict:
+    """``tools.mxu_idct_ab`` and ``tools.vlc_bench`` in this process, each
+    with the launch counts set to 0 just before it and read just after:
+    every IDCT variant within ``MXU_TOLERANCE`` of its plain version (the
+    butterfly equal), the VLC kernel equal to its plain version, each
+    kernel launched, no plain version on the card.  Returns the counts of
+    the new kernels."""
+    import io
+
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        launch_counts, reset_launch_counts)
+    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab, vlc_bench
+
+    tolerance = {"butterfly": (0, 0.0), **MXU_TOLERANCE}
+    found = {}
+    for tool, counters in ((mxu_idct_ab, ("idct", "mxu2pass", "mxu64")),
+                           (vlc_bench, ("vlc",))):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        out = io.StringIO()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            rc = tool.main([])
+        wall = time.monotonic() - t0
+        counts = launch_counts()
+        if rc != 0:
+            fail(f"tools.{name} exited {rc}")
+        record = json.loads(out.getvalue().splitlines()[-1])
+        if min(counts[k] for k in counters) < 1 or counts["plain_on_cuda"]:
+            fail(f"tools.{name} did not go through its kernels alone: "
+                 f"{counts}")
+        if tool is mxu_idct_ab:
+            if sorted(record) != sorted(mxu_idct_ab.VARIANTS):
+                fail(f"tools.mxu_idct_ab ran {sorted(record)}")
+            for variant, r in record.items():
+                tol, share_tol = tolerance[variant]
+                if r["max_abs_diff"] > tol or r["share_diff"] > share_tol:
+                    fail(f"tools.mxu_idct_ab: {variant} outside its "
+                         f"tolerance: {r}")
+        found.update({k: counts[k] for k in counters if k != "idct"})
+        print(f"[3 slice] tools.{name}: exit 0 in {wall:.1f} s; launches "
+              + " ".join(f"{k}={counts[k]}" for k in (*counters,
+                                                        "plain_on_cuda"))
+              + f"; record {json.dumps(record)}", flush=True)
+    return found
+
+
 # --- phase 4 -----------------------------------------------------------------
 
 def time_band(fn, bufs, runs: int = 30):
@@ -794,7 +976,7 @@ def floor_sweep(torch, card: str) -> None:
 
 
 def phase_times(torch, dev, card: str, paths) -> dict:
-    from pim_jpeg_decoder_tpu.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         coeffs_to_device, decode_mcus, decode_mcus_reference,
         qpool_to_device)
@@ -823,19 +1005,27 @@ def phase_times(torch, dev, card: str, paths) -> dict:
             kernel, plain = KERNELS[name]
             cases[name] = (lambda b, f=kernel: f(*b, mode),
                            lambda b, f=plain: f(*b, mode))
+        # qidx and the quantizer pool, read once.
+        side = (bufs[0][1].numel() + bufs[0][2].numel()) * 4
+        decode_ops = m * mode.g * (IDCT_BLOCK_OPS + DEQUANT_BLOCK_OPS)
+        rgb_ops = decode_ops + m * mode.luma_slots * 64 * COLOR_PIXEL_OPS
+        ops = {"rgb": rgb_ops, "truerez": rgb_ops, "stacked": rgb_ops,
+               "ycbcr": decode_ops + m * mode.g * 64,   # + 128 level shift
+               "memfloor": m * mode.luma_slots * 64 * 2}
         for name, (kernel, plain) in cases.items():
             k = time_band(kernel, bufs)
             p = time_band(plain, bufs, runs=20)
             wname = np.dtype(wire).name
-            if wire is np.int8:
-                times[name] = (k[0], p[0])
             mb_out = (mode.g if name == "ycbcr"
                       else 3 * mode.luma_slots) * 64 * m / 1e6
+            b = bound((mb_in + mb_out) * 1e6 + side, ops[name])
+            if wire is np.int8:
+                times[name] = timing(k, p, b)
             print(f"[4 times] {name} kernel 4:2:0 M={m} {wname} wire: "
                   f"{us_band(k)}/launch ({(mb_in + mb_out) / k[0]:.0f} GB/s "
-                  f"of {mb_in + mb_out:.1f} MB); plain PyTorch {us_band(p)};"
-                  f" 30/20 launches over 10 rotating inputs | {card}",
-                  flush=True)
+                  f"of {mb_in + mb_out:.1f} MB; {bound_note(b)}); plain "
+                  f"PyTorch {us_band(p)}; 30/20 launches over 10 rotating "
+                  f"inputs | {card}", flush=True)
         if wire is np.int16:
             stage_times(torch, mode, bufs, times, card)
         del bufs
@@ -879,24 +1069,28 @@ def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
     m = deqs[0].shape[0]
     i16_mb = deqs[0].numel() * 2 / 1e6
     rgb_mb = 3 * mode.luma_slots * 64 * m / 1e6
+    side = (bufs[0][1].numel() + bufs[0][2].numel()) * 4
+    blocks = m * mode.g
     cases = {
         "dequant": (lambda b: SK.dequantize_stage(*b, mode),
                     lambda b: SK.dequantize_stage_reference(*b), bufs,
-                    2 * i16_mb),
+                    2 * i16_mb, side, blocks * DEQUANT_BLOCK_OPS),
         "idct": (lambda d: SK.idct_stage(d, mode), SK.idct_stage_reference,
-                 deqs, 2 * i16_mb),
+                 deqs, 2 * i16_mb, 0, blocks * IDCT_BLOCK_OPS),
         "color": (lambda sp: SK.color_stage(sp, mode, raw=True),
                   lambda sp: SK.color_stage_reference(sp, mode, raw=True),
-                  spats, i16_mb + rgb_mb),
+                  spats, i16_mb + rgb_mb, 0,
+                  m * mode.luma_slots * 64 * COLOR_PIXEL_OPS),
     }
-    for name, (kernel, plain, inputs, mb) in cases.items():
+    for name, (kernel, plain, inputs, mb, extra, ops) in cases.items():
         k = time_band(kernel, inputs)
         p = time_band(plain, inputs, runs=20)
-        times[name] = (k[0], p[0])
+        b = bound(mb * 1e6 + extra, ops)
+        times[name] = timing(k, p, b)
         print(f"[4 times] {name} stage kernel 4:2:0 M={m} int16: "
-              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB); "
-              f"plain PyTorch {us_band(p)}; 30/20 launches over 10 rotating "
-              f"inputs | {card}", flush=True)
+              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
+              f"{bound_note(b)}); plain PyTorch {us_band(p)}; 30/20 "
+              f"launches over 10 rotating inputs | {card}", flush=True)
 
 
 def batch_inputs(torch, dev, blobs, rng, count: int = 10):
@@ -925,7 +1119,7 @@ def batch_inputs(torch, dev, blobs, rng, count: int = 10):
 def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
     """The two new kernels and their plain versions at the batch path's
     shapes, then the batch path's images/s, MP/s and device busy share."""
-    from pim_jpeg_decoder_tpu.utils.profiling import StageTimers
+    from pim_jpeg_decoder_tpu_torch.utils.profiling import StageTimers
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
         iter_decode_batches)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
@@ -936,6 +1130,12 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
     bufs, st = batch_inputs(torch, dev, blobs, rng)
     mode, m_full = st.mode, bufs[0][0].shape[0]
     batch = len(st.headers)
+    # Scale 2 of 4:2:0: each luma block a 4x4 reduced IDCT, each chroma
+    # block an 8x8 one (not upsampled); 16 RGB pixels a luma slot.
+    scaled_mcu_ops = (mode.luma_slots * reduced_idct_ops(4, 4)
+                      + 2 * reduced_idct_ops(8, 8)
+                      + mode.g * DEQUANT_BLOCK_OPS
+                      + mode.luma_slots * 16 * COLOR_PIXEL_OPS)
     for m in (m_full, 16384):
         sub = [(c[:m], q[:m], qp) for c, q, qp in bufs]
         mb = sub[0][0].numel() / 1e6 + 3 * mode.luma_slots * 16 * m / 1e6
@@ -943,12 +1143,13 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
                       sub)
         p = time_band(lambda b: decode_mcus_reference(
             *b, mode, raw=True, scale=2), sub, runs=10)
+        b = bound(mb * 1e6 + (m + sub[0][2].numel()) * 4, m * scaled_mcu_ops)
         if m == m_full:
-            times["rgb_scaled"] = (k[0], p[0])
+            times["rgb_scaled"] = timing(k, p, b)
         print(f"[4 times] rgb_scaled kernel 4:2:0 scale 2 M={m} int8 wire: "
-              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB); "
-              f"plain PyTorch {us_band(p)}; 30/10 launches over 10 rotating "
-              f"inputs | {card}", flush=True)
+              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
+              f"{bound_note(b)}); plain PyTorch {us_band(p)}; 30/10 "
+              f"launches over 10 rotating inputs | {card}", flush=True)
     for scale, dtype_name in ((2, "bfloat16"), (1, None)):
         raws = [decode_mcus(*b, mode, raw=True, scale=scale) for b in bufs]
         _, norm = batch_options(torch, dtype_name)
@@ -958,16 +1159,18 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
         k = time_band(lambda r: raster_epilogue(r, *args, norm=norm), raws)
         p = time_band(lambda r: raster_epilogue_reference(
             r, *args, norm=norm), raws, runs=10)
-        out_bytes = (batch * args[-2] * args[-1] * 3
-                     * (2 if dtype_name else 1))
+        out_elems = batch * args[-2] * args[-1] * 3
+        out_bytes = out_elems * (2 if dtype_name else 1)
         mb = (raws[0].numel() + out_bytes) / 1e6
+        # A subtract and a multiply an element when normalising.
+        b = bound(mb * 1e6, 2 * out_elems if dtype_name else 0, FP32_FLOPS)
         if scale == 2:
-            times["raster"] = (k[0], p[0])
+            times["raster"] = timing(k, p, b)
         print(f"[4 times] raster epilogue B={batch} scale {scale} -> "
               f"{dtype_name or 'uint8'} [{batch}, {args[-2]}, {args[-1]}, 3]"
-              f": {us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB);"
-              f" plain PyTorch {us_band(p)}; 30/10 launches over 10 rotating"
-              f" inputs | {card}", flush=True)
+              f": {us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
+              f"{bound_note(b)}); plain PyTorch {us_band(p)}; 30/10 launches "
+              f"over 10 rotating inputs | {card}", flush=True)
         del raws
     del bufs
     torch.cuda.empty_cache()
@@ -1006,6 +1209,107 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
     busy = device_busy(torch, lambda: run(1, None),
                        "batch path run (scale 1, uint8)")
     print(f"[4 times] {busy} | {card}", flush=True)
+
+
+def max_sm_clock_hz() -> float:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0 or not proc.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm failed: {proc.stderr.strip()}")
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+@contextlib.contextmanager
+def tf32_matmul(torch):
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def phase_ab_times(torch, dev, card: str, times: dict) -> None:
+    """The IDCT variants of ``tools.mxu_idct_ab`` (the butterfly stage
+    kernel, mxu2pass, mxu2pass4, mxu64) and their plain versions on the
+    tool's draw rotated past twice the L2, beside the yardstick products
+    (``torch.matmul`` with TF32 allowed: the products only, not the round
+    and clip); then the VLC kernel and its plain version on the tool's
+    bitstream."""
+    from pim_jpeg_decoder_tpu_torch.ops import mxu_idct as X
+    from pim_jpeg_decoder_tpu_torch.ops.vlc import vlc, vlc_reference
+    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab, vlc_bench
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
+
+    m, g = mxu_idct_ab.M, mxu_idct_ab.MODE.g
+    blocks = m * g
+    nbytes = 2 * blocks * 64 * 2                     # int16 in and out
+    rot = [torch.from_numpy(d).to(dev) for d in mxu_idct_ab.make_inputs(
+        max(8, rotation_count(nbytes // 2, dev)))]
+    # The yardsticks' float32 operands: [8, 8 blocks] per pass, [64, blocks].
+    x8 = [d.float().view(m, g, 8, 8).permute(2, 0, 1, 3).reshape(8, -1)
+          for d in rot]
+    x64 = [d.float().view(blocks, 64).t().contiguous() for d in rot]
+    a8 = torch.from_numpy(X.mat8()).to(dev)
+    a64 = torch.from_numpy(X.mat64()).to(dev)
+    pairs = [(x8[i], x8[(i + 1) % len(x8)]) for i in range(len(x8))]
+    with tf32_matmul(torch):
+        lib2 = time_band(lambda xs: (a8 @ xs[0], a8 @ xs[1]), pairs)
+        lib64 = time_band(lambda x: a64 @ x, x64)
+    del x8, x64, pairs
+    library = {"mxu2pass": lib2, "mxu2pass4": None, "mxu64": lib64,
+               "butterfly": None}
+    flops = {"butterfly": 0, "mxu2pass": 2048 * blocks,
+             "mxu2pass4": 4 * 2048 * blocks, "mxu64": 8192 * blocks}
+    fns = mxu_idct_ab.variant_fns()
+    for name, (kernel, plain) in fns.items():
+        k = time_band(kernel, rot)
+        p = time_band(plain, rot, runs=20)
+        b = (bound(nbytes, blocks * IDCT_BLOCK_OPS) if name == "butterfly"
+             else bound(nbytes, flops[name], TF32_FLOPS))
+        lib = library[name]
+        if name in ("mxu2pass", "mxu64"):
+            times[name] = timing(k, p, b, lib[0])
+        lib_note = (f"; torch.matmul yardstick (TF32, products only"
+                    f"{', both passes' if name == 'mxu2pass' else ''}) "
+                    f"{us_band(lib)}" if lib else "")
+        print(f"[4 times] IDCT A/B {name} 4:2:0 M={m} int16: {us_band(k)}"
+              f"/launch ({nbytes / 1e6 / k[0]:.0f} GB/s of "
+              f"{nbytes / 1e6:.1f} MB; {bound_note(b)}); plain PyTorch "
+              f"{us_band(p)}{lib_note}; 30/20 launches over {len(rot)} "
+              f"rotating inputs | {card}", flush=True)
+    del rot
+    torch.cuda.empty_cache()
+
+    data, lut = (torch.from_numpy(a).to(dev) for a in vlc_bench.make_inputs())
+    seeds = [torch.tensor([i], dtype=torch.int32, device=dev)
+             for i in range(8)]
+    _, nsym, bits = vlc_reference(seeds[0].cpu(), data.cpu(),
+                                  lut.cpu()).tolist()
+    k = time_band(lambda s: vlc(s, data, lut), seeds)
+    p = time_band(lambda s: vlc_reference(s, data, lut), seeds, runs=5)
+    clock = max_sm_clock_hz()
+    b = (nsym * VLC_CYCLES_PER_SYMBOL / clock * 1e3, "operations")
+    times["vlc"] = timing(k, p, b)
+    print(f"[4 times] vlc kernel, {vlc_bench.NWORDS} words, {nsym} symbols, "
+          f"{bits} bits: {us_band(k)}/launch ({nsym / k[0] / 1e3:.2f} "
+          f"Msymbols/s, {k[0] * 1e6 / nsym:.2f} ns a symbol; bound "
+          f"{b[0] * 1e3:.2f} us: {VLC_CYCLES_PER_SYMBOL} dependent cycles a "
+          f"symbol at the {clock / 1e9:.3f} GHz maximum SM clock); plain "
+          f"Python loop {us_band(p)}; 30/5 launches | {card}", flush=True)
+
+
+def kernel_bounds(times: dict, card: str) -> None:
+    """Each kernel's median time against its bound, and its share of it."""
+    for name, t in times.items():
+        print(f"[4 times] bound {JSON_NAMES.get(name, f'decode_{name}')}: "
+              f"{t['ms'] * 1e3:.2f} us vs {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of "
+              f"the bound; library "
+              + (f"{t['library_ms'] * 1e3:.2f} us" if t["library_ms"]
+                 else "none") + f" | {card}", flush=True)
 
 
 def device_busy(torch, fn, label: str) -> str:
@@ -1090,11 +1394,14 @@ def main() -> int:
             crop_set).items() if k in ("rgb_scaled", "raster")})
         record, tool_counts = phase_tool()
         counts.update({k: tool_counts[k] for k in KERNEL_OPT_COUNTERS})
+        counts.update(phase_ab_tools())
         floor_shares(record, card)
         floor_sweep(torch, card)
         times = phase_times(torch, dev, card, paths)
         phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
                           times)
+        phase_ab_times(torch, dev, card, times)
+        kernel_bounds(times, card)
 
     kernels = [{
         "name": JSON_NAMES.get(name, f"decode_{name}"),
@@ -1103,8 +1410,7 @@ def main() -> int:
         "replaces": KERNELS[name][1],
         "launches": counts[name],
         "max_abs_err": max_err[name],
-        "ms": times[name][0],
-        "plain_ms": times[name][1],
+        **times[name],
     } for name in KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,12 @@
 
 A port of :mod:`pim_jpeg_decoder_tpu` (JAX/Pallas on a TPU) to an NVIDIA
 Hopper GPU.  The host layer (marker scan, C++ entropy decode, BMP I/O, the
-NumPy oracle and the integer spec) is the JAX package's own, imported
-without JAX; the device work is hand-written CUDA kernels (``csrc/``:
-full-scale RGB, YCbCr, scaled RGB and the batch raster epilogue) with
+NumPy oracle and the integer spec) is the port's own copy of the JAX
+package's, at the same relative paths (``codec/``, ``native/``, ``io/``,
+``oracle/``, ``ops/specs.py``, ``ops/idct_math.py``, ``utils/``); the port
+imports nothing of ``pim_jpeg_decoder_tpu``.  The device work is
+hand-written CUDA kernels (``csrc/``: full-scale RGB, YCbCr, scaled RGB,
+the batch raster epilogue, the stage kernels and the tools' kernels) with
 plain PyTorch versions beside them.
 
 Top-level API (lazy, so importing the package builds and loads nothing):

@@ -67,7 +67,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.profile:
         os.environ["PIM_JPEG_TPU_PROFILE"] = args.profile
 
-    from pim_jpeg_decoder_tpu.utils.config import EngineConfig
+    from pim_jpeg_decoder_tpu_torch.utils.config import EngineConfig
     from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
 
     try:

@@ -38,9 +38,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pim_jpeg_decoder_tpu.codec.header import JpegError, JpegHeader
-from pim_jpeg_decoder_tpu.codec.scanner import scan_jpeg
-from pim_jpeg_decoder_tpu.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.codec.header import JpegError, JpegHeader
+from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
 from pim_jpeg_decoder_tpu_torch.models.pipeline import (build_qpool,
                                                         entropy_decode,
                                                         resolve_device)

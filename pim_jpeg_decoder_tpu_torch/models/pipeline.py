@@ -1,8 +1,8 @@
 """The single-image JPEG decode pipeline on PyTorch.
 
 Counterpart of ``pim_jpeg_decoder_tpu/models/pipeline.py`` (which imports
-the Pallas kernel module, so it cannot be reused here).  The host stages are
-the JAX package's own, imported rather than copied:
+the Pallas kernel module).  The host stages are the port's own copies of
+the JAX package's host layer, at the same relative paths:
 
   scan_jpeg (marker parse)            codec/scanner.py
   entropy decode (C++ fast path)      native/ (or codec/progressive.py)
@@ -26,13 +26,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pim_jpeg_decoder_tpu.codec.header import JpegHeader
-from pim_jpeg_decoder_tpu.codec.scanner import scan_jpeg
-from pim_jpeg_decoder_tpu.io.bmp import write_bmp
-from pim_jpeg_decoder_tpu.native import native_available
-from pim_jpeg_decoder_tpu.native.binding import (raster_rgb_cpp,
-                                                 ycbcr_to_rgb_cpp)
-from pim_jpeg_decoder_tpu.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.codec.header import JpegHeader
+from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
+from pim_jpeg_decoder_tpu_torch.io.bmp import write_bmp
+from pim_jpeg_decoder_tpu_torch.native import native_available
+from pim_jpeg_decoder_tpu_torch.native.binding import (raster_rgb_cpp,
+                                                       ycbcr_to_rgb_cpp)
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
 from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (coeffs_to_device,
                                                           decode_mcus,
                                                           qpool_to_device)
@@ -54,13 +54,14 @@ def entropy_decode(header: JpegHeader, out=None,
     """``[num_mcus, g, 64]`` int16 natural-order coefficients (baseline via
     the native C++ decoder, progressive via the multi-scan decoder)."""
     if header.progressive:
-        from pim_jpeg_decoder_tpu.codec.progressive import decode_progressive
+        from pim_jpeg_decoder_tpu_torch.codec.progressive import (
+            decode_progressive)
         coeffs = decode_progressive(header, threads=threads)
         if out is not None:
             out[...] = coeffs
             return out
         return coeffs
-    from pim_jpeg_decoder_tpu.native import decode_scan_native
+    from pim_jpeg_decoder_tpu_torch.native import decode_scan_native
     return decode_scan_native(header, out=out, threads=threads)
 
 

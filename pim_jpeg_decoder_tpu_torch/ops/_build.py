@@ -135,7 +135,12 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_idct_stage,
                      [ptr, ptr, ctypes.c_int64, ptr]),
                     (lib.pjt_cuda_color_stage,
-                     [ptr, ptr, ctypes.c_int64, i32, i32, i32, ptr])):
+                     [ptr, ptr, ctypes.c_int64, i32, i32, i32, ptr]),
+                    (lib.pjt_cuda_mxu2pass,
+                     [ptr, ptr, ptr, ctypes.c_int64, i32, f32, f32, ptr]),
+                    (lib.pjt_cuda_mxu64,
+                     [ptr, ptr, ptr, ctypes.c_int64, f32, ptr]),
+                    (lib.pjt_cuda_vlc, [ptr] * 5)):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

@@ -33,8 +33,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from pim_jpeg_decoder_tpu.ops import specs as S
-from pim_jpeg_decoder_tpu.ops.idct_math import idct_1d
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.ops.idct_math import idct_1d
 
 # Launch counters: each kernel's wrapper adds one where it launches, and
 # "plain_on_cuda" counts plain-version calls on CUDA tensors (a run that
@@ -42,6 +42,7 @@ from pim_jpeg_decoder_tpu.ops.idct_math import idct_1d
 _counts: Dict[str, int] = {"rgb": 0, "ycbcr": 0, "rgb_scaled": 0,
                            "raster": 0, "dequant": 0, "idct": 0, "color": 0,
                            "memfloor": 0, "truerez": 0, "stacked": 0,
+                           "mxu2pass": 0, "mxu64": 0, "vlc": 0,
                            "plain_on_cuda": 0}
 _counts_lock = threading.Lock()
 

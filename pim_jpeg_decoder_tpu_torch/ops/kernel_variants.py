@@ -32,8 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from pim_jpeg_decoder_tpu.ops import specs as S
-from pim_jpeg_decoder_tpu.ops.idct_math import idct_1d
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.ops.idct_math import idct_1d
 from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
     _check_inputs,
     _chroma_index,

@@ -1,7 +1,7 @@
 """MCU batch packing: many images -> per-mode device batches.
 
 Same packing and bucketing as ``pim_jpeg_decoder_tpu/runtime/batching.py``
-(which imports the Pallas kernel module, so it cannot be reused here):
+(which imports the Pallas kernel module):
 images are packed greedily per sampling mode into an MCU budget, flushed
 when the next one does not fit, and each flushed batch is allocated at the
 smallest ``specs.MCU_BUCKETS`` size covering it, rounded up to ``align``
@@ -17,8 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from pim_jpeg_decoder_tpu.codec.header import JpegHeader
-from pim_jpeg_decoder_tpu.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.codec.header import JpegHeader
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
 from pim_jpeg_decoder_tpu_torch.models.pipeline import build_qpool
 
 # Maximum images whose quant tables can share one device batch.
@@ -36,7 +36,8 @@ def compact_wire(coeffs: np.ndarray) -> np.ndarray:
     if coeffs.dtype != np.int16 or not coeffs.size:
         return coeffs
     if os.environ.get("PIM_JPEG_TPU_NO_NATIVE") != "1":
-        from pim_jpeg_decoder_tpu.native.binding import compact_wire_cpp
+        from pim_jpeg_decoder_tpu_torch.native.binding import (
+            compact_wire_cpp)
         out = compact_wire_cpp(coeffs)
         if out is not None:
             return out

@@ -74,7 +74,7 @@ def time_phases(key: LaunchKey, device="cuda") -> Dict[str, float]:
     one launch geometry, measured now (no cache).  ``color_us`` is absent
     for the YCbCr transport (colour runs on the host there); scaled decode
     reports ``fused_us`` only (the stage kernels are full-scale)."""
-    from pim_jpeg_decoder_tpu.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_stage, dequantize_stage, idct_stage)

@@ -35,14 +35,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pim_jpeg_decoder_tpu.codec.header import JpegHeader
-from pim_jpeg_decoder_tpu.codec.scanner import scan_jpeg
-from pim_jpeg_decoder_tpu.io.bmp import write_bmp, write_bmp_ycbcr
-from pim_jpeg_decoder_tpu.native import native_available
-from pim_jpeg_decoder_tpu.ops import specs as S
-from pim_jpeg_decoder_tpu.utils.config import EngineConfig
-from pim_jpeg_decoder_tpu.utils.log import logger
-from pim_jpeg_decoder_tpu.utils.profiling import STAGES, StageTimers
+from pim_jpeg_decoder_tpu_torch.codec.header import JpegHeader
+from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
+from pim_jpeg_decoder_tpu_torch.io.bmp import write_bmp, write_bmp_ycbcr
+from pim_jpeg_decoder_tpu_torch.native import native_available
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.utils.config import EngineConfig
+from pim_jpeg_decoder_tpu_torch.utils.log import logger
+from pim_jpeg_decoder_tpu_torch.utils.profiling import STAGES, StageTimers
 from pim_jpeg_decoder_tpu_torch.models.pipeline import (
     assemble_raster_raw_scaled,
     assemble_raster_ycbcr,

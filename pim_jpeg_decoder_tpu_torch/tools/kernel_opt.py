@@ -42,7 +42,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from pim_jpeg_decoder_tpu.ops import specs as S
+from pim_jpeg_decoder_tpu_torch.ops import specs as S
 
 M = 16384
 MODE = S.mode_for((2, 2, 3))

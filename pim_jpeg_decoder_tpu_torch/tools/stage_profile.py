@@ -23,7 +23,7 @@ M = 16384
 
 
 def profile(device="cuda") -> dict:
-    from pim_jpeg_decoder_tpu.utils.config import EngineConfig
+    from pim_jpeg_decoder_tpu_torch.utils.config import EngineConfig
     from pim_jpeg_decoder_tpu_torch.runtime.device_profile import time_phases
 
     key = (MODE_KEY, M, EngineConfig().lane_tile, "rgb", 1, "i16", 16)

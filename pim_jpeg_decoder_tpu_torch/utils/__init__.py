@@ -1,1 +1,2 @@
-"""Measurement helpers for the card."""
+"""Config, logging and stage timers (copies of the JAX package's), and
+measurement helpers for the card."""

@@ -24,6 +24,7 @@ from pim_jpeg_decoder_tpu.codec.header import JpegError
 from pim_jpeg_decoder_tpu.models import input_pipeline as J
 from pim_jpeg_decoder_tpu.ops import specs as S
 from pim_jpeg_decoder_tpu.utils.profiling import StageTimers
+from pim_jpeg_decoder_tpu_torch.codec.header import JpegError as PortJpegError
 from pim_jpeg_decoder_tpu_torch.models import input_pipeline as T
 from pim_jpeg_decoder_tpu_torch.ops import decode_kernel as K
 
@@ -256,7 +257,8 @@ BAD = {
 @pytest.mark.parametrize("case", sorted(BAD))
 def test_bad_input_raises_like_jax(case):
     """The same exception type and message as the JAX package (the port
-    decodes on the CPU here; the JAX side raises before compiling)."""
+    decodes on the CPU here; the JAX side raises before compiling).  A
+    ``JpegError`` from the port is its own copy's class of that name."""
     call, exc = BAD[case]
     with pytest.raises(exc) as want:
         call(J, jnp.float32)
@@ -265,8 +267,9 @@ def test_bad_input_raises_like_jax(case):
         name: staticmethod(port(getattr(T, name), device="cpu"))
         for name in ("decode_same_size_batch", "decode_same_size_batch_crops",
                      "decode_batch_crops", "iter_decode_batches")})
-    with pytest.raises(exc) as got:
+    with pytest.raises(PortJpegError if exc is JpegError else exc) as got:
         call(api, torch.float32)
+    assert type(got.value).__name__ == type(want.value).__name__
     assert str(got.value) == str(want.value)
 
 

@@ -27,23 +27,27 @@ def _run(code, cwd=REPO, timeout=300):
 def test_port_decodes_without_loading_jax(tmp_path):
     """In a fresh process (this one has JAX loaded by conftest): importing
     every port module and decoding through the API, the engine and the CLI
-    on the CPU leaves ``jax`` out of ``sys.modules``."""
+    on the CPU, with a JPEG made by the port's own encoder, and running the
+    tools' plain versions, leaves ``jax``, ``pim_jpeg_decoder_tpu`` and
+    every ``pim_jpeg_decoder_tpu.*`` module out of ``sys.modules``."""
     proc = _run(f"""
+        import importlib
+        import pkgutil
         import sys
         import numpy as np
         import pim_jpeg_decoder_tpu_torch as port
+        for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+            if not info.name.endswith("__main__"):
+                importlib.import_module(info.name)
         import pim_jpeg_decoder_tpu_torch.cli
-        import pim_jpeg_decoder_tpu_torch.ops._build
-        import pim_jpeg_decoder_tpu_torch.ops.kernel_variants
-        import pim_jpeg_decoder_tpu_torch.ops.stage_kernels
-        import pim_jpeg_decoder_tpu_torch.runtime.batching
-        import pim_jpeg_decoder_tpu_torch.runtime.device_profile
-        import pim_jpeg_decoder_tpu_torch.tools.kernel_opt
-        import pim_jpeg_decoder_tpu_torch.tools.stage_profile
-        import pim_jpeg_decoder_tpu_torch.utils.devbench
+        import pim_jpeg_decoder_tpu_torch.ops.mxu_idct as mxu
+        import pim_jpeg_decoder_tpu_torch.ops.vlc as vlc
+        import pim_jpeg_decoder_tpu_torch.tools.vlc_bench as vlc_bench
         import torch
-        from pim_jpeg_decoder_tpu.codec.encoder import encode_jpeg
-        from pim_jpeg_decoder_tpu.ops.specs import mode_for
+        from pim_jpeg_decoder_tpu_torch.codec.encoder import encode_jpeg
+        from pim_jpeg_decoder_tpu_torch.ops.specs import mode_for
+        assert len([m for m in sys.modules
+                    if m.startswith("pim_jpeg_decoder_tpu_torch.")]) > 40
         img = np.random.default_rng(0).integers(0, 256, (40, 48, 3),
                                                  dtype=np.uint8)
         data = encode_jpeg(img, sampling="4:2:0")
@@ -81,19 +85,76 @@ def test_port_decodes_without_loading_jax(tmp_path):
                       torch.zeros(2, dtype=torch.int32),
                       torch.ones(1, 6, 64, dtype=torch.int32),
                       mode_for((2, 2, 3))).shape == (3, 4, 64, 2)
+        deq = torch.zeros(3, 6, 64, dtype=torch.int16)
+        for out in (mxu.mxu2pass(deq), mxu.mxu2pass(deq, pieces=2),
+                    mxu.mxu64(deq)):
+            assert out.shape == (3, 6, 64)
+        words, table = (torch.from_numpy(a) for a in vlc_bench.make_inputs())
+        assert vlc.vlc(torch.zeros(1, dtype=torch.int32), words,
+                       table).tolist() == [1113556, 8639, 65475]
         assert "jax" not in sys.modules, "jax was imported"
+        jax_pkg = [m for m in sys.modules if m == "pim_jpeg_decoder_tpu"
+                   or m.startswith("pim_jpeg_decoder_tpu.")]
+        assert not jax_pkg, jax_pkg
         print("OK")
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
 
 
-def test_no_jax_import_in_port_sources():
-    offenders = []
+# An import of the JAX package or of any module under it (never of
+# ``pim_jpeg_decoder_tpu_torch``, which starts with the same name).
+JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from\s+pim_jpeg_decoder_tpu(?!\w)"
+    r"|import\s+[^#\n]*\bpim_jpeg_decoder_tpu(?!\w))"
+    r"|(import_module|__import__)\(\s*['\"]pim_jpeg_decoder_tpu(?!\w)", re.M)
+
+
+def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(PORT):
         dirs[:] = [d for d in dirs if d != "_build"]   # build outputs
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_jax_package_import_in_port_sources():
+    """No module of the port and not chip_smoke.py imports the JAX package
+    or any module under it (the port keeps its own host layer)."""
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            src = f.read()
+        offenders += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}"
+                      for m in JAX_PACKAGE_IMPORT.finditer(src)]
+    assert offenders == []
+
+
+@pytest.mark.parametrize("line,hit", [
+    ("from pim_jpeg_decoder_tpu.ops import specs as S", True),
+    ("    from pim_jpeg_decoder_tpu.native import binding", True),
+    ("import pim_jpeg_decoder_tpu", True),
+    ("import pim_jpeg_decoder_tpu.codec.encoder as enc", True),
+    ("from pim_jpeg_decoder_tpu import decode_bytes", True),
+    ("importlib.import_module('pim_jpeg_decoder_tpu.cli')", True),
+    ("import pim_jpeg_decoder_tpu.ops.specs  # a comment", True),
+    ("import os, pim_jpeg_decoder_tpu.io.bmp", True),
+    ("__import__(\"pim_jpeg_decoder_tpu\")", True),
+    ("import pim_jpeg_decoder_tpu_torch.ops.specs  # a comment", False),
+    ("from pim_jpeg_decoder_tpu_torch import cli", False),
+    ("from pim_jpeg_decoder_tpu_torch.ops import specs as S", False),
+    ("import pim_jpeg_decoder_tpu_torch.cli", False),
+    ("    Counterpart of ``pim_jpeg_decoder_tpu/ops/specs.py``", False),
+])
+def test_jax_package_import_pattern(line, hit):
+    """The static scan tells the JAX package from the port by the full
+    name, never by the bare prefix."""
+    assert bool(JAX_PACKAGE_IMPORT.search(line)) is hit
+
+
+def test_no_jax_import_in_port_sources():
+    offenders = []
+    files = _port_sources()
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -143,8 +204,8 @@ def test_nvcc_command_targets_sm90a_under_the_gitignored_build_dir():
     compiles, link = _build.nvcc_commands(out)
     assert [cmd[-1] for cmd in compiles] == [
         os.path.join(PORT, "csrc", name)
-        for name in ("decode_kernel.cu", "kernel_opt.cu",
-                     "raster_epilogue.cu", "stage_kernels.cu")]
+        for name in ("decode_kernel.cu", "kernel_opt.cu", "mxu_idct.cu",
+                     "raster_epilogue.cu", "stage_kernels.cu", "vlc.cu")]
     for cmd in compiles:
         assert cmd[0] == "nvcc"
         i = cmd.index("-gencode")

@@ -11,6 +11,7 @@ CUDA kernels are held against the same plain versions and against
 ``rgb_kernel`` on the card by chip_smoke.py.
 """
 
+import dataclasses
 import importlib.util
 import os
 
@@ -212,7 +213,8 @@ def test_tool_inputs_are_the_jax_tools_draw(jax_tool):
     draw (the first coefficient buffer, drawn before 7 more and then the
     quantizer pools); the rotations have the sizes asked for, the int8
     buffers the clipped int16 ones (checked at a small M)."""
-    assert (T.M, T.MODE, T.Q) == (jax_tool.M, jax_tool.MODE, jax_tool.Q)
+    assert (T.M, dataclasses.astuple(T.MODE), T.Q) == (
+        jax_tool.M, dataclasses.astuple(jax_tool.MODE), jax_tool.Q)
     m = 64
     rot = T.make_inputs(n16=9, n8=17, m=m)
     rng = np.random.default_rng(0)
