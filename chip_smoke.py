@@ -25,7 +25,11 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    kernels (``csrc/mxu_idct.cu``: mxu2pass with pieces 1 and 2, mxu64) at
    M=16,384 and 1,001 of int16 in [-2048, 2048) within ``MXU_TOLERANCE``
    of their float32 plain versions (TF32 operands; pieces 2 bit-exact);
-   the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0;
+   the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0; the tiled
+   RGB and YCbCr kernels also in every mode, both wires, at M values
+   around their 32-MCU tile and 16-byte stores (``TILE_MS``: 1, 15, 17, 31,
+   33, 196,608) and on a ``coeffs[5:]`` slice of 1,027 MCUs, with
+   out-of-range ``qidx`` entries (a zero quantizer row), tolerance 0;
 3. the main paths, each with the launch counts set to 0 just before it and
    read just after: ``cli.main`` on an ImageNet-val-like corpus (every BMP
    equal to the oracle raster, the same BMPs with ``--transport rgb`` and
@@ -52,11 +56,16 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    the IDCT A/B (butterfly, mxu2pass, mxu2pass4, mxu64) at the tool's
    geometry and the VLC kernel; the ``tools/stage_profile`` record
    (staged sum, fused time, fusion ratio), the ``tools.kernel_opt`` record
-   and rgb_kernel's GB/s as a share of its memory floor's (int16 and int8
+   and rgb_kernel's GB/s as a share of the floor's (``memfloor_kernel``:
+   its first, per-thread form's access pattern; int16 and int8
    wire, from that one run) and over the tool's launch sizes
    (``kernel_opt.sweep``, 2,048 to 196,608 MCUs), the engine's end-to-end
    MP/s on the corpus, the batch path's images/s and MP/s, and the device
-   busy share of one traced run of each.
+   busy share of one traced run of each; ``rgb_kernel`` and
+   ``ycbcr_kernel`` in every mode at M=16,384 (int8) and at 4:2:0
+   M=196,608 (both wires) against their bounds, and each one's registers
+   (``nvcc.log``), dynamic shared memory, blocks an SM (occupancy
+   calculator) and SASS instructions an MCU (``cuobjdump -sass``).
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -325,6 +334,7 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                 fail(f"rgb_scaled kernel != decode_scaled_oracle on "
                      f"{mode.name} at scale {scale}")
         n_mcus += header.num_mcus
+    n_tile, tile_note = tile_cases(torch, dev, rng, max_err)
     n_epi = epilogue_cases(torch, dev, rng, max_err)
     mxu_line = mxu_cases(torch, dev, rng, max_err)
     vlc_line = vlc_cases(torch, dev, max_err)
@@ -339,9 +349,61 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
           f"{len(oracle_images)} encoded images; {n_epi} raster-epilogue "
           f"cases byte-identical (5 modes x scale 1/2/4/8 x u8/f32/bf16/f16 "
           f"x full/cropped)", flush=True)
+    print(f"[2 kernels] {n_tile} tile cases byte-identical: {tile_note}",
+          flush=True)
     print(f"[2 kernels] {mxu_line}", flush=True)
     print(f"[2 kernels] {vlc_line}", flush=True)
     return max_err
+
+
+# M values around the full-scale kernels' tile (TILE_MCUS = 32, in
+# csrc/decode_tile.cuh) and their 16-byte store width.
+TILE_MS = (1, 15, 17, 31, 33, 196608)
+
+
+def tile_cases(torch, dev, rng, max_err):
+    """rgb_kernel and ycbcr_kernel against their plain versions, tolerance
+    0, in every mode and on both wires at the M values of ``TILE_MS``
+    (extreme blocks and out-of-range qidx entries -- Q and -1 -- in each),
+    and on a ``coeffs[5:]`` slice of 1,027 MCUs (input from MCU 5, an
+    output whose rows start off the 16-byte grid)."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, decode_mcus_reference,
+        qpool_to_device)
+
+    cases = 0
+    for key in sorted(S.MODES):
+        mode = S.mode_for(key)
+        for wire in (np.int16, np.int8):
+            for m in TILE_MS + ("slice",):
+                n = 1032 if m == "slice" else m
+                coeffs, qidx, qpool = synthetic_batch(mode, max(n, 3), wire,
+                                                      rng, extreme=True)
+                qidx[n // 2] = qpool.shape[0]
+                qidx[n - 1] = -1
+                x = coeffs_to_device(coeffs[:n], dev)
+                qi = torch.from_numpy(qidx[:n]).to(dev)
+                if m == "slice":
+                    x, qi = x[5:], qi[5:]       # 1,027 MCUs from MCU 5
+                qp = qpool_to_device(qpool, dev)
+                for name in ("rgb", "ycbcr"):
+                    kw = dict(raw=True, ycbcr=name == "ycbcr")
+                    got = decode_mcus(x, qi, qp, mode, **kw)
+                    want = decode_mcus_reference(x, qi, qp, mode, **kw)
+                    torch.cuda.synchronize()
+                    err = int((got.int() - want.int()).abs().max())
+                    max_err[name] = max(max_err[name], err)
+                    if got.shape != want.shape or err:
+                        fail(f"{name} kernel != plain version: {mode.name} "
+                             f"{np.dtype(wire).name} M={m} (tile case) "
+                             f"max|err|={err}")
+                    cases += 1
+                del x, qi
+    torch.cuda.empty_cache()
+    return cases, (f"rgb/ycbcr x 5 modes x i16/i8 x M={list(TILE_MS)} and "
+                   f"a coeffs[5:] slice of 1,027 MCUs, extreme blocks and "
+                   f"out-of-range qidx (Q, -1: a zero quantizer row)")
 
 
 def mxu_cases(torch, dev, rng, max_err) -> str:
@@ -927,9 +989,14 @@ def us_band(band) -> str:
 
 
 def floor_shares(record: dict, card: str) -> None:
-    """rgb_kernel against the layout-matched memory floor, from the
-    tool's one run (same call, same rotation): the floor's time over
-    rgb_kernel's is rgb_kernel's GB/s as a share of the floor's."""
+    """rgb_kernel against the memory floor of ``tools.kernel_opt``, from
+    the tool's one run (same call, same rotation): the floor's time over
+    rgb_kernel's is rgb_kernel's GB/s as a share of the floor's.  The
+    floor (``memfloor_kernel``) moves the bytes in the access pattern of
+    rgb_kernel's first, per-thread form (a thread per 8x8 block, byte
+    stores); the
+    tiled rgb_kernel does not use that pattern, so its share can pass
+    100%."""
     from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
 
     print(f"[4 times] tools.kernel_opt record: {json.dumps(record)} | {card}",
@@ -940,16 +1007,19 @@ def floor_shares(record: dict, card: str) -> None:
                                       ("int8", 1, "memfloor_i8", "prod_i8")):
         mb = m * mode.g * 64 * nbytes / 1e6 + out_mb
         f_us, p_us = record[floor]["us"], record[prod]["us"]
-        print(f"[4 times] rgb_kernel vs its memory floor, 4:2:0 M={m} {wire} "
+        print(f"[4 times] rgb_kernel vs the per-thread access-pattern floor, "
+              f"4:2:0 M={m} {wire} "
               f"wire ({mb:.1f} MB): floor {f_us} us ({mb / f_us * 1e3:.0f} "
               f"GB/s), rgb_kernel {p_us} us ({mb / p_us * 1e3:.0f} GB/s): "
-              f"{100 * f_us / p_us:.1f}% of the floor's GB/s | {card}",
+              f"{100 * f_us / p_us:.1f}% of the floor's GB/s (over 100%: "
+              f"faster than that pattern) | {card}",
               flush=True)
 
 
 def floor_sweep(torch, card: str) -> None:
     """``tools.kernel_opt.sweep()``: every variant at each launch size of
-    ``SWEEP_M``, each bit-exact, with rgb_kernel's share of its floor."""
+    ``SWEEP_M``, each bit-exact, with rgb_kernel's share of the
+    per-thread access-pattern floor."""
     from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
 
     t0 = time.monotonic()
@@ -962,8 +1032,8 @@ def floor_sweep(torch, card: str) -> None:
             fail(f"tools.kernel_opt sweep at M={m}: not bit-exact: {inexact}")
         us = {n: r["us"] for n, r in record.items()}
         mb = m * (mode.g * 64 * 2 + 3 * mode.luma_slots * 64) / 1e6
-        print(f"[4 times] kernel_opt sweep 4:2:0 M={m} ({-(-m // 64)} blocks "
-              f"of 64), us int16 [int8]: floor {us['memfloor']} "
+        print(f"[4 times] kernel_opt sweep 4:2:0 M={m} (floor: {-(-m // 64)}"
+              f" blocks of 64), us int16 [int8]: floor {us['memfloor']} "
               f"[{us['memfloor_i8']}] ({mb / us['memfloor'] * 1e3:.0f} GB/s "
               f"of {mb:.1f} MB int16), rgb_kernel {us['prod']} "
               f"[{us['prod_i8']}], truerez {us['chroma_truerez']}, stacked "
@@ -1057,6 +1127,141 @@ def phase_times(torch, dev, card: str, paths) -> dict:
                        "engine run")
     print(f"[4 times] {busy} | {card}", flush=True)
     return times
+
+
+def decode_bound(mode, m: int, wire_bytes: int, name: str):
+    """The bound of one full-scale decode launch (``name`` rgb or ycbcr):
+    the wire in, qidx and a Q=16 pool once, the output out; the spec's
+    integer operations (gray RGB: a level shift a pixel)."""
+    nbytes = (m * mode.g * 64 * wire_bytes + m * 4 + 16 * mode.g * 64 * 4
+              + (mode.g if name == "ycbcr" else 3 * mode.luma_slots) * 64 * m)
+    ops = m * mode.g * (IDCT_BLOCK_OPS + DEQUANT_BLOCK_OPS)
+    if name == "ycbcr":
+        ops += m * mode.g * 64
+    else:
+        ops += m * mode.luma_slots * 64 * (COLOR_PIXEL_OPS if mode.ncomp == 3
+                                           else 1)
+    return bound(nbytes, ops)
+
+
+def tile_times(torch, dev, card: str) -> dict:
+    """rgb_kernel and ycbcr_kernel where the main path runs them: every
+    mode at M=16,384 on the int8 wire, and 4:2:0 at M=196,608 (a B=256
+    batch) on both wires; each against its bound.  Returns the M=16,384
+    int8 medians by (kernel, mode name)."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, qpool_to_device)
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
+
+    rng = np.random.default_rng(SEED + 5)
+    geoms = [(key, 16384, np.int8) for key in sorted(S.MODES)]
+    geoms += [((2, 2, 3), 196608, w) for w in (np.int8, np.int16)]
+    medians = {}
+    for key, m, wire in geoms:
+        mode = S.mode_for(key)
+        wb = np.dtype(wire).itemsize
+        bufs = []
+        for _ in range(max(2, rotation_count(m * mode.g * 64 * wb, dev))):
+            c, qi, qp = synthetic_batch(mode, m, wire, rng, extreme=False)
+            bufs.append((coeffs_to_device(c, dev),
+                         torch.from_numpy(qi).to(dev),
+                         qpool_to_device(qp, dev)))
+        for name in ("rgb", "ycbcr"):
+            k = time_band(lambda b, yc=name == "ycbcr": decode_mcus(
+                *b, mode, raw=True, ycbcr=yc), bufs)
+            b = decode_bound(mode, m, wb, name)
+            if m == 16384:
+                medians[(name, mode.name)] = k[0]
+            print(f"[4 times] {name}_kernel {mode.name} M={m} "
+                  f"{np.dtype(wire).name}: {us_band(k)}/launch; "
+                  f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound; "
+                  f"30 launches over {len(bufs)} rotating inputs | {card}",
+                  flush=True)
+        del bufs
+        torch.cuda.empty_cache()
+    return medians
+
+
+# Opcode roots of the integer-ALU pipe, the FMA pipe (IMAD) and memory.
+SASS_ALU = ("IADD3", "LOP3", "SHF", "VIMNMX", "IMNMX", "SEL", "LEA", "PRMT",
+            "ISETP", "VIADD", "IABS", "SGXT")
+SASS_MEM = ("LDS", "STS", "LDG", "STG", "LDGSTS", "LDC")
+
+
+def sass_counts(lib_path: str) -> dict:
+    """``{mangled kernel name: Counter of opcode roots}`` from
+    ``cuobjdump -sass`` of the built library (NOPs left out)."""
+    from collections import Counter
+
+    from pim_jpeg_decoder_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
+    counts = {}
+    for body in re.split(r"\n\s+Function : ", proc.stdout)[1:]:
+        name, _, code = body.partition("\n")
+        ops = re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", code)
+        counts[name.strip()] = Counter(o for o in ops if o != "NOP")
+    return counts
+
+
+def tile_resources(torch, card: str, medians: dict) -> None:
+    """Registers (ptxas, ``nvcc.log``), dynamic shared memory and blocks an
+    SM holds (the occupancy calculator) of each full-scale tile kernel,
+    and its SASS: instructions, of which integer-ALU, IMAD and memory, per
+    MCU (every loop is unrolled, so a warp runs each instruction at most
+    once a tile: TILE_THREADS / 32 warps over TILE_MCUS MCUs), and the
+    time those would take at M=16,384 issued at one warp instruction a
+    clock on each of an SM's 4 schedulers at the maximum SM clock."""
+    from pim_jpeg_decoder_tpu_torch.ops import _build
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        TILE_MCUS, TILE_THREADS, tile_occupancy)
+
+    lib = os.path.join(_build.build_dir(), _build.LIB_NAME)
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        log = f.read()
+    regs = dict(re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) "
+                           r"registers", log, flags=re.S))
+    sass = sass_counts(lib)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    pattern = re.compile(r"\d+(rgb|ycbcr)_kernelI([as])((?:Li\d+E)+)Lb1E")
+    for mangled, ops in sorted(sass.items()):
+        found = pattern.search(mangled)
+        if not found:
+            continue
+        name, wire = found.group(1), 1 if found.group(2) == "a" else 2
+        ints = [int(i) for i in re.findall(r"Li(\d+)E", found.group(3))]
+        if name == "rgb":
+            key = (ints[0], ints[1], ints[2])
+        else:   # ycbcr_kernel<T, G>: the first mode of that block count
+            key = next(k for k in sorted(S.MODES)
+                       if S.mode_for(k).g == ints[0])
+        mode = S.mode_for(key)
+        blocks, smem = tile_occupancy(wire, mode, name == "ycbcr")
+        total = sum(ops.values())
+        per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
+        alu = sum(ops[o] for o in SASS_ALU)
+        mem = sum(ops[o] for o in SASS_MEM)
+        issue_us = per_mcu * 16384 / (4 * sms * clock) * 1e6
+        measured = medians.get((name, mode.name)) if wire == 1 else None
+        label = mode.name if name == "rgb" or mode.g != 4 else "4:2:2/4:4:0"
+        print(f"[4 times] {name}_kernel {label} int{8 * wire} (16-byte "
+              f"stores): {regs.get(mangled, '?')} registers, {smem} B "
+              f"dynamic shared memory, {blocks} blocks/SM "
+              f"({blocks * TILE_THREADS // 32} warps); SASS {total} "
+              f"instructions ({alu} integer ALU, {ops['IMAD']} IMAD, {mem} "
+              f"memory), {per_mcu:.1f} warp instructions an MCU: "
+              f"{issue_us:.2f} us of issue at M=16384 ({sms} SMs x 4 "
+              f"schedulers, {clock / 1e9:.3f} GHz)"
+              + (f" vs {measured * 1e3:.2f} us measured" if measured
+                 else "") + f" | {card}", flush=True)
 
 
 def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
@@ -1401,6 +1606,7 @@ def main() -> int:
         phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
                           times)
         phase_ab_times(torch, dev, card, times)
+        tile_resources(torch, card, tile_times(torch, dev, card))
         kernel_bounds(times, card)
 
     kernels = [{

@@ -17,19 +17,21 @@
 //
 // What bounds them on an H100: the floor, bytes (a 16,384-MCU 4:2:0
 // launch reads 12.6 MB of int16 wire and writes 12.6 MB of RGB); the two
-// decode variants, like rgb_kernel, their per-MCU decode work, not bytes:
-// on an H100 80GB HBM3 at 700 W the floor moved those 25.2 MB in 19.3 us
-// and rgb_kernel, truerez and stacked took 34-50 us (PERF.md).
-//   - memfloor_kernel is rgb_kernel with the decode taken out and its
-//     memory traffic left in: thread (slot s, MCU m) of a TILE-MCU block
-//     reads its block with the same 16-byte loads, parks the low bytes in
-//     shared memory, and the block writes every output byte once through
-//     store_rgb (decode_common.cuh), the store loop rgb_kernel itself
-//     calls: bytes, MCU index fastest across a warp, three planes.  The
-//     wrapped sum is its only arithmetic (uint32_t; the low byte of a sum
-//     depends on the low bytes of its terms only).  It must not copy
-//     better than production (no wider stores), or it stops being
-//     rgb_kernel's floor.
+// decode variants, like rgb_kernel's first form, their per-MCU decode
+// work, not bytes: on an H100 80GB HBM3 at 700 W the floor moved those
+// 25.2 MB in 19.3 us and that rgb_kernel, truerez and stacked took 34-50
+// us (PERF.md).
+//   - memfloor_kernel is rgb_kernel's first form (a thread per 8x8
+//     block; decode_kernel.cu now holds a tiled redesign) with the decode
+//     taken out and its memory traffic left in: thread (slot s, MCU m)
+//     of a TILE-MCU block reads its block with the same 16-byte loads,
+//     parks the low bytes in shared memory, and the block writes every
+//     output byte once through store_rgb (decode_common.cuh), that
+//     form's store loop: bytes, MCU index fastest across a warp, three
+//     planes.  The wrapped sum is its only arithmetic (uint32_t; the low
+//     byte of a sum depends on the low bytes of its terms only).  It keeps
+//     measuring that access pattern (no wider stores), so the tiled
+//     rgb_kernel can beat it.
 //   - rgb_truerez_kernel: rgb_kernel computes the three colour terms for
 //     every output pixel; at 4:2:0 each chroma sample's terms four times.
 //     Here the block computes each chroma sample's terms once into shared

@@ -140,7 +140,8 @@ def load() -> ctypes.CDLL:
                      [ptr, ptr, ptr, ctypes.c_int64, i32, f32, f32, ptr]),
                     (lib.pjt_cuda_mxu64,
                      [ptr, ptr, ptr, ctypes.c_int64, f32, ptr]),
-                    (lib.pjt_cuda_vlc, [ptr] * 5)):
+                    (lib.pjt_cuda_vlc, [ptr] * 5),
+                    (lib.pjt_cuda_decode_occupancy, [i32] * 6 + [ptr, ptr])):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

@@ -63,6 +63,11 @@ def reset_launch_counts() -> None:
             _counts[k] = 0
 
 
+# The full-scale kernels' tile (csrc/decode_tile.cuh): MCUs and threads of
+# a CUDA block.
+TILE_MCUS = 32
+TILE_THREADS = 256
+
 # --- state carried to the device ---------------------------------------------
 
 def coeffs_to_device(coeffs: np.ndarray, device) -> torch.Tensor:
@@ -89,8 +94,12 @@ def qpool_to_device(qpool: np.ndarray, device) -> torch.Tensor:
 def dequantized(coeffs: torch.Tensor, qidx: torch.Tensor,
                 qpool: torch.Tensor) -> torch.Tensor:
     """``clip(coeffs * qpool[qidx[m]])`` to the int16 range, as int32
-    ``[M, g, 64]``."""
-    q = qpool[qidx.long()]                                   # [M, g, 64]
+    ``[M, g, 64]``.  An MCU whose ``qidx`` is out of range takes a zero
+    quantizer row, as the kernels and the JAX kernel's one-hot gather do."""
+    idx = qidx.long()
+    inside = ((idx >= 0) & (idx < qpool.shape[0]))[:, None, None]
+    q = torch.where(inside, qpool[idx.clamp(0, qpool.shape[0] - 1)],
+                    0)                                       # [M, g, 64]
     return (coeffs.to(torch.int32) * q).clamp(-S.DEQUANT_CLAMP - 1,
                                                S.DEQUANT_CLAMP)
 
@@ -297,6 +306,24 @@ def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
                            f"cudaError {rc}")
     _count(name)
     return out
+
+
+def tile_occupancy(wire_bytes: int, mode: S.ModeSpec, ycbcr: bool,
+                   vec16: bool = True) -> Tuple[int, int]:
+    """``(blocks per SM, dynamic shared memory bytes)`` of the full-scale
+    tile kernel that a decode of ``mode`` on this wire launches (``vec16``:
+    the 16-byte-store form taken when M % 16 == 0), from the CUDA occupancy
+    calculator on the current card."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    rc = load().pjt_cuda_decode_occupancy(
+        wire_bytes, mode.h, mode.v, mode.ncomp, int(ycbcr), int(vec16),
+        ctypes.byref(blocks), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return blocks.value, smem.value
 
 
 def decode_mcus(coeffs: torch.Tensor, qidx: torch.Tensor,

@@ -13,8 +13,10 @@ of ``decode_kernel.qpool_to_device``) of a colour mode and returns uint8
 - :func:`memfloor`: no decode.  Each luma slot's output byte is
   ``u8(c[s] + c[gy] + c[gy+1])`` (int32 sum truncated to its low byte),
   written to all three planes: every coefficient byte read once, every
-  output byte written once, with ``rgb_kernel``'s loads and stores.  It
-  is the denominator of ``rgb_kernel``'s bandwidth share.
+  output byte written once, with the loads and byte stores of
+  ``rgb_kernel``'s first form (a thread per 8x8 block).  It is
+  the denominator of ``rgb_kernel``'s bandwidth share, and measures that
+  access pattern, not the tiled ``rgb_kernel``'s.
 - :func:`rgb_truerez`: ``rgb_kernel``'s output, with the three BT.601
   chroma terms computed once per chroma sample and replicated to the luma
   pixels by index.

@@ -105,14 +105,71 @@ def test_plain_version_matches_numpy_oracle():
         np.testing.assert_array_equal(got[:, s], want.transpose(2, 1, 0))
 
 
-def test_any_mcu_count():
-    """No lane-tile padding: M = 0, 1 and 7 decode like a padded batch."""
-    mode = S.mode_for((1, 1, 3))
-    coeffs, qidx, qpool = make_inputs(mode, np.int16, seed=3)
-    full = port(coeffs, qidx, qpool, mode, raw=True)
-    for m in (0, 1, 7):
-        got = port(coeffs[:m].copy(), qidx[:m].copy(), qpool, mode, raw=True)
-        np.testing.assert_array_equal(got, full[..., :m])
+SMALL_MS = (0, 1, 7, 15, 17, 31, 33)   # around the 32-MCU tile and 16 B
+
+
+@pytest.fixture(scope="module")
+def full_batches():
+    """One M=101 batch and its plain decode per (mode, wire, layout)."""
+    cache = {}
+
+    def get(mode_key, wire, layout):
+        key = (mode_key, wire, layout)
+        if key not in cache:
+            mode = S.mode_for(mode_key)
+            inputs = make_inputs(mode, wire, seed=3)
+            cache[key] = (inputs, port(*inputs, mode, **{layout: True}))
+        return cache[key]
+    return get
+
+
+@pytest.mark.parametrize("m", SMALL_MS)
+@pytest.mark.parametrize("wire", [np.int16, np.int8], ids=["i16", "i8"])
+@pytest.mark.parametrize("layout", ["raw", "ycbcr"])
+@pytest.mark.parametrize("mode_key", MODE_KEYS, ids=MODE_IDS)
+def test_any_mcu_count(full_batches, mode_key, layout, wire, m):
+    """No lane-tile padding: the first M MCUs of a batch, M around the
+    CUDA kernels' 32-MCU tile and 16-byte store width, decode like the
+    same MCUs inside the whole batch."""
+    mode = S.mode_for(mode_key)
+    (coeffs, qidx, qpool), full = full_batches(mode_key, wire, layout)
+    got = port(coeffs[:m].copy(), qidx[:m].copy(), qpool, mode,
+               **{layout: True})
+    np.testing.assert_array_equal(got, full[..., :m])
+
+
+@pytest.mark.parametrize("mode_key", MODE_KEYS, ids=MODE_IDS)
+def test_out_of_range_qidx_matches_jax_kernel(mode_key):
+    """M=33 (one MCU past a tile) with qidx entries past the pool and
+    negative: those MCUs decode against a zero quantizer, as the JAX
+    kernel's one-hot gather and the CUDA kernels do."""
+    mode = S.mode_for(mode_key)
+    coeffs, qidx, qpool = make_inputs(mode, np.int8, seed=17)
+    coeffs, qidx = coeffs[:33].copy(), qidx[:33].copy()
+    qidx[[3, 20]] = qpool.shape[0]
+    qidx[[4, 32]] = -1
+    want = jax_reference(coeffs, qidx, qpool, mode, raw=True)
+    got = port(coeffs, qidx, qpool, mode, raw=True)
+    np.testing.assert_array_equal(got, want)
+    pool = np.concatenate([qpool, np.zeros_like(qpool[:1])])
+    zero_row = np.where((qidx < 0) | (qidx >= len(qpool)), len(qpool), qidx)
+    np.testing.assert_array_equal(
+        got, port(coeffs, zero_row.astype(np.int32), pool, mode, raw=True))
+
+
+def test_tile_constants_match_the_header():
+    """``TILE_MCUS`` / ``TILE_THREADS`` (read by chip_smoke.py's SASS
+    accounting) are the values csrc/decode_tile.cuh compiles with."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                        "decode_tile.cuh")
+    with open(path) as f:
+        text = f.read()
+    for name in ("TILE_MCUS", "TILE_THREADS"):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert found and int(found.group(1)) == getattr(K, name)
 
 
 def test_cpu_calls_count_no_launch():
