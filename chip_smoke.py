@@ -18,7 +18,12 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    M=1,001 with extreme blocks (Q=16 with one 16-bit quantizer row); the
    stages composed equal to the fused RGB kernel; the RGB kernels also
    against the NumPy oracle (full and scaled) on encoded images; the raster
-   epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped;
+   epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped,
+   and where its band design branches (``epilogue_band_cases``: MCU columns
+   of ``BAND_GWS``, outputs 1 to the full grid wide, B = 1, crop origins
+   at and past every edge, the B=256 ImageNet geometry in all four types);
+   the dequantize stage at the M values of ``DEQUANT_MS`` with wire-limit
+   coefficients and out-of-range ``qidx`` (``dequant_cases``);
    the memory-floor, chroma-truerez and stacked kernels
    (``csrc/kernel_opt.cu``) for the colour modes, both wires, both Ms, the
    last two also equal to the fused RGB kernel; the tensor-core IDCT
@@ -65,7 +70,11 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    ``ycbcr_kernel`` in every mode at M=16,384 (int8) and at 4:2:0
    M=196,608 (both wires) against their bounds, and each one's registers
    (``nvcc.log``), dynamic shared memory, blocks an SM (occupancy
-   calculator) and SASS instructions an MCU (``cuobjdump -sass``).
+   calculator) and SASS instructions an MCU (``cuobjdump -sass``); the
+   raster epilogue at the B=256 batch's two geometries and as 224x224
+   crops of it, each against its bound, and the registers, shared memory
+   and blocks an SM of the epilogue's and the dequantize stage's
+   instantiations.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -118,7 +127,10 @@ KERNELS = {
     "vlc": ("pim_jpeg_decoder_tpu_torch/csrc/vlc.cu",
             "tools/tpu_vlc_bench.py:38"),
 }
-JSON_NAMES = {"raster": "raster_epilogue", "dequant": "stage_dequantize",
+JSON_NAMES = {"raster": "raster_epilogue",
+              "raster_scale2": "raster_epilogue (scale 2 -> bfloat16)",
+              "raster_crops": "raster_epilogue (224x224 crops -> bfloat16)",
+              "dequant": "stage_dequantize",
               "idct": "stage_idct", "color": "stage_color",
               "memfloor": "kernel_opt_memfloor",
               "truerez": "kernel_opt_chroma_truerez",
@@ -336,6 +348,8 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
         n_mcus += header.num_mcus
     n_tile, tile_note = tile_cases(torch, dev, rng, max_err)
     n_epi = epilogue_cases(torch, dev, rng, max_err)
+    n_band = epilogue_band_cases(torch, dev, rng)
+    n_deq = dequant_cases(torch, dev, rng, max_err)
     mxu_line = mxu_cases(torch, dev, rng, max_err)
     vlc_line = vlc_cases(torch, dev, max_err)
     print(f"[2 kernels] {cases} decode, stage and kernel_opt "
@@ -351,6 +365,14 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
           f"x full/cropped)", flush=True)
     print(f"[2 kernels] {n_tile} tile cases byte-identical: {tile_note}",
           flush=True)
+    print(f"[2 kernels] {n_band} raster-epilogue band cases byte-identical "
+          f"(gray and 4:2:0 x scale 1/2 x gw={list(BAND_GWS)} x out_w 1/5/"
+          f"500/full x u8/f32/bf16/f16 x B=1 full / B=6 crops with origins "
+          f"at 0, the far edge, negative, past the edge, odd, even; and the "
+          f"B=256 ImageNet geometry at scale 1/2 in all four types); "
+          f"{n_deq} dequantize-stage cases byte-identical (5 modes x i16/i8 "
+          f"x M={list(DEQUANT_MS)}, wire-limit coefficients against 16-bit "
+          f"quantizers, qidx Q and -1; staged == fused in each)", flush=True)
     print(f"[2 kernels] {mxu_line}", flush=True)
     print(f"[2 kernels] {vlc_line}", flush=True)
     return max_err
@@ -556,6 +578,132 @@ def epilogue_cases(torch, dev, rng, max_err) -> int:
                              f"{'crop' if len(args) > 2 else 'full'} "
                              f"max|err|={err}")
                     cases += 1
+    return cases
+
+
+# MCU columns per image where the epilogue's band design branches: 32 (one
+# aligned chunk), 1, 17 (a ragged chunk), 33 and 128 (a chunk loop).
+BAND_GWS = (32, 1, 17, 33, 128)
+# M values of the dequantize stage cases: around the 4 blocks a warp takes
+# at once, an odd count that ends inside a CUDA block, and a B=256 batch.
+DEQUANT_MS = (1, 3, 31, 33, 1027, 196608)
+
+
+def epilogue_band_cases(torch, dev, rng) -> int:
+    """raster_epilogue against its plain version where the band design
+    branches, byte for byte in every output type: gray and 4:2:0 at scale
+    1 and 2, ``gw`` of ``BAND_GWS`` (M % 16 == 0 for 32, else not), outputs
+    1, 5, 500 (where the grid has them) and the full grid wide, B = 1 for
+    the full form, and six crop origins (0, the far edge, negative, past
+    the edge, odd, even) as one B = 6 launch; then the B=256 ImageNet
+    geometry itself (24 x 32 MCUs of 4:2:0, 500x375) at scale 1 and 2 in
+    all four output types."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        raster_epilogue, raster_epilogue_reference)
+
+    dtypes = (None, torch.float32, torch.bfloat16, torch.float16)
+
+    def check(what, raw, mode, scale, b, gh, gw, *args, dtype) -> None:
+        norm = _norm_static(dtype, **IMAGENET_NORM) if dtype else None
+        got = raster_epilogue(raw, mode, scale, b, gh, gw, *args, norm=norm)
+        want = raster_epilogue_reference(raw, mode, scale, b, gh, gw, *args,
+                                         norm=norm)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"raster epilogue != plain version: {mode.name} scale "
+                 f"{scale} {dtype} B={b} gh={gh} gw={gw} {what}")
+
+    cases = 0
+    b, gh = 6, 2
+    for key in ((1, 1, 1), (2, 2, 3)):
+        mode = S.mode_for(key)
+        for scale in (1, 2):
+            n = 8 // scale
+            for gw in BAND_GWS:
+                m = b * gh * gw + (0 if gw % 16 == 0 else 3)
+                raw = torch.from_numpy(rng.integers(
+                    0, 256, (3, mode.luma_slots, n * n, m),
+                    dtype=np.uint8)).to(dev)
+                grid_h, grid_w = gh * mode.v * n, gw * mode.h * n
+                out_h = grid_h - 3
+                for out_w in sorted({1, 5, 500, grid_w}):
+                    if out_w > grid_w:
+                        continue
+                    far_y, far_x = grid_h - out_h, grid_w - out_w
+                    origins = ((0, 0), (far_y, far_x), (-3, -2),
+                               (far_y + 5, far_x + 9), (1, far_x | 1),
+                               (2, far_x & ~1))
+                    oys, oxs = (torch.tensor(o, dtype=torch.int32,
+                                             device=dev)
+                                for o in zip(*origins))
+                    for dtype in dtypes:
+                        check(f"full {out_h}x{out_w}", raw, mode, scale, 1,
+                              gh, gw, out_h, out_w, dtype=dtype)
+                        check(f"crops {out_h}x{out_w}", raw, mode, scale, b,
+                              gh, gw, out_h, out_w, oys, oxs, dtype=dtype)
+                        cases += 2
+    mode = S.mode_for((2, 2, 3))
+    b, gh, gw = 256, 24, 32
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for scale in (1, 2):
+        n = 8 // scale
+        raw = torch.randint(0, 256, (3, mode.luma_slots, n * n, b * gh * gw),
+                            dtype=torch.uint8, device=dev, generator=gen)
+        for dtype in dtypes:
+            check("the ImageNet batch", raw, mode, scale, b, gh, gw,
+                  -(-375 // scale), -(-500 // scale), dtype=dtype)
+            cases += 1
+        del raw
+    torch.cuda.empty_cache()
+    return cases
+
+
+def dequant_cases(torch, dev, rng, max_err) -> int:
+    """dequantize_stage against its plain version, tolerance 0, in every
+    mode (g = 1, 3, 4, 6) on both wires at the M values of ``DEQUANT_MS``:
+    extreme coefficients (the wire's limits against 16-bit quantizers, so
+    the int32 product wraps before the clamp), ``qidx`` of Q and -1 (a zero
+    quantizer row); and the three stages composed still equal to the fused
+    RGB kernel."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops import stage_kernels as SK
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, qpool_to_device)
+
+    cases = 0
+    for key in sorted(S.MODES):
+        mode = S.mode_for(key)
+        for wire in (np.int16, np.int8):
+            for m in DEQUANT_MS:
+                coeffs, qidx, qpool = synthetic_batch(mode, max(m, 3), wire,
+                                                      rng, extreme=True)
+                info = np.iinfo(wire)
+                coeffs[0, :, ::2], coeffs[0, :, 1::2] = info.max, info.min
+                qidx[0] = qpool.shape[0] - 1          # the 16-bit row
+                qidx[m // 2] = qpool.shape[0]
+                qidx[m - 1] = -1
+                x = coeffs_to_device(coeffs[:m], dev)
+                qi = torch.from_numpy(qidx[:m]).to(dev)
+                qp = qpool_to_device(qpool, dev)
+                got = SK.dequantize_stage(x, qi, qp, mode)
+                want = SK.dequantize_stage_reference(x, qi, qp)
+                staged = SK.decode_mcus_staged(x, qi, qp, mode)
+                fused = decode_mcus(x, qi, qp, mode)
+                torch.cuda.synchronize()
+                err = int((got.int() - want.int()).abs().max())
+                max_err["dequant"] = max(max_err["dequant"], err)
+                if got.shape != want.shape or err:
+                    fail(f"dequant stage kernel != plain version: "
+                         f"{mode.name} {np.dtype(wire).name} M={m} "
+                         f"max|err|={err}")
+                if not torch.equal(staged, fused):
+                    fail(f"decode_mcus_staged != decode_mcus: {mode.name} "
+                         f"{np.dtype(wire).name} M={m}")
+                cases += 1
+                del x, qi, got, want, staged, fused
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1264,6 +1412,59 @@ def tile_resources(torch, card: str, medians: dict) -> None:
                  else "") + f" | {card}", flush=True)
 
 
+def redesign_resources(torch, card: str) -> None:
+    """Registers and static shared memory (ptxas, ``nvcc.log``) of every
+    instantiation of the banded raster epilogue and of the address-order
+    dequantize stage kernel, with the blocks an SM holds (the occupancy
+    calculator) for the 4:2:0 ones that phase 4 times."""
+    from pim_jpeg_decoder_tpu_torch.ops import _build
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import raster_occupancy
+    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import dequant_occupancy
+
+    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
+        log = f.read()
+    entries = re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) "
+                         r"registers", log, flags=re.S)
+    out_types = {"h": None, "f": torch.float32,
+                 "13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
+    epi = re.compile(r"raster_epilogue_kernelI(h|f|13__nv_bfloat16|6__half)"
+                     r"Li(\d+)ELi(\d+)E")
+    deq = re.compile(r"dequant_stage_kernelI([as])Li(\d+)E")
+    mode = S.mode_for((2, 2, 3))
+    found = {"epilogue": [], "dequant": []}
+    for mangled, regs in entries:
+        hit = epi.search(mangled)
+        if hit:
+            n, h = int(hit.group(2)), int(hit.group(3))
+            found["epilogue"].append(int(regs))
+            if h == mode.h and n in (8, 4):
+                dtype = out_types[hit.group(1)]
+                blocks, smem = raster_occupancy(mode, 8 // n, dtype)
+                print(f"[4 times] raster_epilogue_kernel 4:2:0 scale "
+                      f"{8 // n} -> {dtype or 'uint8'}: {regs} registers, "
+                      f"{smem} B dynamic shared memory, {blocks} blocks/SM "
+                      f"({blocks * 8} warps) | {card}", flush=True)
+        hit = deq.search(mangled)
+        if hit:
+            found["dequant"].append(int(regs))
+            if int(hit.group(2)) == mode.g:
+                wire = 1 if hit.group(1) == "a" else 2
+                blocks = dequant_occupancy(wire, mode)
+                print(f"[4 times] dequant_stage_kernel 4:2:0 int{8 * wire}: "
+                      f"{regs} registers, no shared memory, {blocks} "
+                      f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
+    if len(found["epilogue"]) != 32 or len(found["dequant"]) != 8:
+        fail(f"nvcc.log names {len(found['epilogue'])} epilogue and "
+             f"{len(found['dequant'])} dequantize instantiations, expected "
+             f"32 and 8")
+    print(f"[4 times] raster_epilogue_kernel: 32 instantiations (4 output "
+          f"types x n 8/4/2/1 x h 1/2), {min(found['epilogue'])}-"
+          f"{max(found['epilogue'])} registers; dequant_stage_kernel: 8 "
+          f"(2 wires x g 1/3/4/6), {min(found['dequant'])}-"
+          f"{max(found['dequant'])} registers | {card}", flush=True)
+
+
 def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
     """The three stage kernels and their plain versions at the stage
     profile's geometry (``bufs``: 10 rotating 4:2:0 int16 inputs, Q=16)."""
@@ -1294,7 +1495,8 @@ def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
         times[name] = timing(k, p, b)
         print(f"[4 times] {name} stage kernel 4:2:0 M={m} int16: "
               f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
-              f"{bound_note(b)}); plain PyTorch {us_band(p)}; 30/20 "
+              f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound); "
+              f"plain PyTorch {us_band(p)}; 30/20 "
               f"launches over 10 rotating inputs | {card}", flush=True)
 
 
@@ -1329,7 +1531,8 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
         iter_decode_batches)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         decode_mcus, decode_mcus_reference, raster_epilogue,
-        raster_epilogue_reference)
+        raster_epilogue_reference, raster_occupancy)
+    from pim_jpeg_decoder_tpu_torch.tools.decode_ab import crop_origins
 
     rng = np.random.default_rng(SEED + 4)
     bufs, st = batch_inputs(torch, dev, blobs, rng)
@@ -1353,28 +1556,42 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
             times["rgb_scaled"] = timing(k, p, b)
         print(f"[4 times] rgb_scaled kernel 4:2:0 scale 2 M={m} int8 wire: "
               f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
-              f"{bound_note(b)}); plain PyTorch {us_band(p)}; 30/10 "
+              f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound); "
+              f"plain PyTorch {us_band(p)}; 30/10 "
               f"launches over 10 rotating inputs | {card}", flush=True)
-    for scale, dtype_name in ((2, "bfloat16"), (1, None)):
+    h0 = st.headers[0]
+    for scale, dtype_name, crop in ((2, "bfloat16", None), (1, None, None),
+                                    (1, "bfloat16", (224, 224))):
         raws = [decode_mcus(*b, mode, raw=True, scale=scale) for b in bufs]
         _, norm = batch_options(torch, dtype_name)
-        h0 = st.headers[0]
-        args = (mode, scale, batch, st.gh, st.gw, -(-h0.height // scale),
-                -(-h0.width // scale))
+        out_h, out_w = crop or (-(-h0.height // scale), -(-h0.width // scale))
+        args = (mode, scale, batch, st.gh, st.gw, out_h, out_w)
+        if crop:
+            args += crop_origins(torch, rng, batch, scale,
+                                 (h0.height, h0.width), crop, dev)
         k = time_band(lambda r: raster_epilogue(r, *args, norm=norm), raws)
         p = time_band(lambda r: raster_epilogue_reference(
             r, *args, norm=norm), raws, runs=10)
-        out_elems = batch * args[-2] * args[-1] * 3
+        out_elems = batch * out_h * out_w * 3
         out_bytes = out_elems * (2 if dtype_name else 1)
-        mb = (raws[0].numel() + out_bytes) / 1e6
+        # Each input byte the output needs read once: the pixels of the
+        # output window, not the MCU grid's padding around it.
+        mb = (out_elems + out_bytes) / 1e6
         # A subtract and a multiply an element when normalising.
         b = bound(mb * 1e6, 2 * out_elems if dtype_name else 0, FP32_FLOPS)
-        if scale == 2:
-            times["raster"] = timing(k, p, b)
-        print(f"[4 times] raster epilogue B={batch} scale {scale} -> "
-              f"{dtype_name or 'uint8'} [{batch}, {args[-2]}, {args[-1]}, 3]"
+        form = (f"{out_h}x{out_w} crops of scale {scale}" if crop
+                else f"scale {scale}")
+        key = ("raster_crops" if crop else
+               "raster" if scale == 1 else "raster_scale2")
+        times[key] = timing(k, p, b)
+        blocks, smem = raster_occupancy(
+            mode, scale, getattr(torch, dtype_name) if dtype_name else None)
+        print(f"[4 times] raster epilogue B={batch} {form} -> "
+              f"{dtype_name or 'uint8'} [{batch}, {out_h}, {out_w}, 3]"
               f": {us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
-              f"{bound_note(b)}); plain PyTorch {us_band(p)}; 30/10 launches "
+              f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound; "
+              f"{smem} B dynamic shared memory, {blocks} blocks/SM); plain "
+              f"PyTorch {us_band(p)}; 30/10 launches "
               f"over 10 rotating inputs | {card}", flush=True)
         del raws
     del bufs
@@ -1607,6 +1824,7 @@ def main() -> int:
                           times)
         phase_ab_times(torch, dev, card, times)
         tile_resources(torch, card, tile_times(torch, dev, card))
+        redesign_resources(torch, card)
         kernel_bounds(times, card)
 
     kernels = [{
@@ -1618,6 +1836,11 @@ def main() -> int:
         "max_abs_err": max_err[name],
         **times[name],
     } for name in KERNELS]
+    for k in kernels:   # the epilogue's other timed geometries
+        if k["name"] == JSON_NAMES["raster"]:
+            k["geometry"] = "B=256 500x375 4:2:0, scale 1 -> uint8"
+            k["other_geometries"] = {JSON_NAMES[g]: times[g] for g in
+                                     ("raster_scale2", "raster_crops")}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,22 @@
 // What bounds them on an H100: bytes, as for the fused kernels, and three
 // times as many of them: each stage reads and writes a whole [M, g, 64]
 // array (4:2:0, M=16,384, int16: 12.6 MB in and 12.6 MB out for the first
-// two stages).  The design is the fused kernels' simple one:
-//   - dequantize and IDCT: one thread per 8x8 block, 16-byte loads and
-//     stores of its 128 contiguous bytes, neighbouring threads on
-//     neighbouring blocks (the dequant stage keeps rgb_kernel's thread
-//     layout, thread (slot s, MCU m), and its indexed quantizer load);
+// two stages).
+//   - dequantize is elementwise, so it runs in address order: a lane takes
+//     8 consecutive coefficients (one 16-byte load on the int16 wire, 8
+//     bytes on int8; one 16-byte store), neighbouring lanes neighbouring
+//     addresses, so every load and store instruction of a warp covers
+//     whole 128-byte lines.  A thread takes DEQ_UNROLL such vectors a
+//     block-stride apart and starts all their coefficient and qidx loads
+//     before the first multiply.  A warp's 256 coefficients are 4 blocks of
+//     (usually) one MCU, so its qidx load is a broadcast, and its 8
+//     quantizers a lane (two 16-byte loads of the int32 pool, 24.6 KB at
+//     Q=16 and 4:2:0) come from the L1 after the first touch, never from
+//     device memory.  An out-of-range qidx reads row 0 and is masked to a
+//     zero quantizer (decode_common.cuh: quant_row explains why the row
+//     stays a valid address);
+//   - IDCT: one thread per 8x8 block, 16-byte loads and stores of its 128
+//     contiguous bytes, neighbouring threads on neighbouring blocks;
 //   - colour: a CUDA block copies the contiguous samples of its
 //     COLOR_TILE MCUs into shared memory with coalesced 4-byte loads, then
 //     computes each output pixel with the MCU index fastest across a warp,
@@ -36,6 +47,8 @@
 
 namespace {
 
+constexpr int DEQ_THREADS = 256;   // dequantize: threads per CUDA block
+constexpr int DEQ_UNROLL = 4;      // 16-byte output vectors per thread
 constexpr int IDCT_THREADS = 256;  // 8x8 blocks per CUDA block
 constexpr int COLOR_TILE = 32;     // MCUs per CUDA block (one warp wide)
 
@@ -58,19 +71,85 @@ __device__ __forceinline__ void store_block_i16(int16_t* __restrict__ dst,
   }
 }
 
+// 8 consecutive coefficients at src (16-byte aligned on the int16 wire, 8
+// on int8), sign-extended.
+template <typename T>
+struct Coeffs8;
+
+template <>
+struct Coeffs8<int16_t> {
+  int4 v;
+  __device__ __forceinline__ void load(const int16_t* __restrict__ src) {
+    v = __ldg(reinterpret_cast<const int4*>(src));
+  }
+  __device__ __forceinline__ int32_t at(int j) const {
+    return element<int16_t>(v, j);
+  }
+};
+
+template <>
+struct Coeffs8<int8_t> {
+  uint2 v;
+  __device__ __forceinline__ void load(const int8_t* __restrict__ src) {
+    v = __ldg(reinterpret_cast<const uint2*>(src));
+  }
+  __device__ __forceinline__ int32_t at(int j) const {
+    return static_cast<int8_t>((j < 4 ? v.x : v.y) >> ((j & 3) * 8));
+  }
+};
+
+// Vector i of the launch is coefficients [8i, 8i + 8) of the flat
+// [M, G, 64] array: MCU i / (G*8), and entries (i % (G*8)) * 8 onwards of
+// that MCU's G*64 quantizers.
 template <typename T, int G>
-__global__ void __launch_bounds__(G * TILE)
+__global__ void __launch_bounds__(DEQ_THREADS)
 dequant_stage_kernel(const T* __restrict__ coeffs,
                      const int32_t* __restrict__ qidx,
                      const int32_t* __restrict__ qpool, int num_q,
-                     int16_t* __restrict__ out, long long num_mcus) {
-  const int s = threadIdx.x / TILE;
-  const long long m =
-      static_cast<long long>(blockIdx.x) * TILE + threadIdx.x % TILE;
-  if (m >= num_mcus) return;
-  uint32_t deq[64];   // clamped to the int16 range
-  dequant_block<T, G>(coeffs, qidx, qpool, num_q, m, s, deq);
-  store_block_i16(out + (static_cast<size_t>(m) * G + s) * 64, deq);
+                     int16_t* __restrict__ out, long long num_vecs) {
+  constexpr int PER_MCU = G * 8;   // vectors per MCU
+  const long long block0 =
+      static_cast<long long>(blockIdx.x) * (DEQ_THREADS * DEQ_UNROLL);
+  const long long mcu0 = block0 / PER_MCU;
+  const int lane0 = static_cast<int>(block0 % PER_MCU) + threadIdx.x;
+  const long long left = num_vecs - block0 - threadIdx.x;
+
+  Coeffs8<T> c[DEQ_UNROLL];
+  int qi[DEQ_UNROLL];
+#pragma unroll
+  for (int u = 0; u < DEQ_UNROLL; ++u) {
+    if (u * DEQ_THREADS < left) {
+      const int r = lane0 + u * DEQ_THREADS;
+      c[u].load(coeffs + (block0 + threadIdx.x + u * DEQ_THREADS) * 8);
+      qi[u] = __ldg(qidx + mcu0 + r / PER_MCU);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < DEQ_UNROLL; ++u) {
+    if (u * DEQ_THREADS < left) {
+      const int r = lane0 + u * DEQ_THREADS;
+      const bool ok =
+          static_cast<unsigned>(qi[u]) < static_cast<unsigned>(num_q);
+      const uint32_t keep = ok ? ~0u : 0u;
+      const int4* q = reinterpret_cast<const int4*>(
+          qpool + (static_cast<size_t>(ok ? qi[u] : 0) * PER_MCU +
+                   r % PER_MCU) * 8);
+      const int4 lo = __ldg(q), hi = __ldg(q + 1);
+      uint32_t d[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t qv =
+            static_cast<uint32_t>(element<int32_t>(j < 4 ? lo : hi, j & 3));
+        d[j] = dequant(c[u].at(j), qv & keep) & 0xffffu;
+      }
+      *reinterpret_cast<int4*>(
+          out + (block0 + threadIdx.x + u * DEQ_THREADS) * 8) =
+          make_int4(static_cast<int>(d[0] | (d[1] << 16)),
+                    static_cast<int>(d[2] | (d[3] << 16)),
+                    static_cast<int>(d[4] | (d[5] << 16)),
+                    static_cast<int>(d[6] | (d[7] << 16)));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(IDCT_THREADS)
@@ -142,10 +221,12 @@ template <typename T, int G>
 int launch_dequant(const void* coeffs, const void* qidx, const void* qpool,
                    int num_q, void* out, long long num_mcus,
                    cudaStream_t stream) {
-  dequant_stage_kernel<T, G><<<grid(num_mcus, TILE), G * TILE, 0, stream>>>(
-      static_cast<const T*>(coeffs), static_cast<const int32_t*>(qidx),
-      static_cast<const int32_t*>(qpool), num_q, static_cast<int16_t*>(out),
-      num_mcus);
+  const long long num_vecs = num_mcus * G * 8;
+  dequant_stage_kernel<T, G>
+      <<<grid(num_vecs, DEQ_THREADS * DEQ_UNROLL), DEQ_THREADS, 0, stream>>>(
+          static_cast<const T*>(coeffs), static_cast<const int32_t*>(qidx),
+          static_cast<const int32_t*>(qpool), num_q,
+          static_cast<int16_t*>(out), num_vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -168,6 +249,29 @@ int dequant_g(const void* coeffs, const void* qidx, const void* qpool,
                                   stream);
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dequant_occupancy(int g, int* blocks) {
+  const void* kernel = nullptr;
+  switch (g) {
+    case 1:
+      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 1>);
+      break;
+    case 3:
+      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 3>);
+      break;
+    case 4:
+      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 4>);
+      break;
+    case 6:
+      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 6>);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, DEQ_THREADS, 0));
 }
 
 template <int H, int V, int NC>
@@ -203,6 +307,14 @@ extern "C" int pjt_cuda_dequant_stage(const void* coeffs, int wire_bytes,
                              st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Blocks of the dequantize kernel for this wire and g that one SM holds.
+extern "C" int pjt_cuda_dequant_occupancy(int wire_bytes, int g,
+                                          int* blocks) {
+  if (wire_bytes != 1 && wire_bytes != 2) return cudaErrorInvalidValue;
+  return wire_bytes == 2 ? dequant_occupancy<int16_t>(g, blocks)
+                         : dequant_occupancy<int8_t>(g, blocks);
 }
 
 // num_blocks = M * g independent 8x8 blocks; output int16, row-major.

@@ -371,10 +371,13 @@ def apply_norm(img: torch.Tensor, norm: Norm) -> torch.Tensor:
     return x.to(dtype)
 
 
-def _crop_origins(offsets: torch.Tensor, limit: int) -> torch.Tensor:
-    """Crop origins clamped into ``[0, limit]``, as ``dynamic_slice``
-    clamps its start indices."""
-    return offsets.long().clamp(0, limit)
+def _crop_origins(offsets: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """Crop origins of ``size`` pixels along a ``dim``-pixel axis as
+    ``jax.lax.dynamic_slice`` reads its start indices: a negative one
+    counts from the far end (``dim`` is added), and the result is clamped
+    into ``[0, dim - size]``."""
+    o = offsets.long()
+    return torch.where(o < 0, o + dim, o).clamp(0, dim - size)
 
 
 def raster_epilogue_reference(raw: torch.Tensor, mode: S.ModeSpec,
@@ -398,9 +401,9 @@ def raster_epilogue_reference(raw: torch.Tensor, mode: S.ModeSpec,
         crops = img[:, :out_h, :out_w]
     else:
         dev = raw.device
-        rows = (_crop_origins(oys, img.shape[1] - out_h)[:, None]
+        rows = (_crop_origins(oys, img.shape[1], out_h)[:, None]
                 + torch.arange(out_h, device=dev))
-        cols = (_crop_origins(oxs, img.shape[2] - out_w)[:, None]
+        cols = (_crop_origins(oxs, img.shape[2], out_w)[:, None]
                 + torch.arange(out_w, device=dev))
         crops = img[torch.arange(batch, device=dev)[:, None, None],
                     rows[:, :, None], cols[:, None, :]]
@@ -436,6 +439,23 @@ def _check_epilogue(raw, mode: S.ModeSpec, scale: int, batch: int, gh: int,
                          f"float16, got {norm[0]}")
 
 
+def raster_occupancy(mode: S.ModeSpec, scale: int,
+                     dtype: Optional[torch.dtype] = None) -> Tuple[int, int]:
+    """``(blocks per SM, dynamic shared memory bytes)`` of the epilogue
+    kernel that ``mode`` at ``scale`` launches for output ``dtype`` (None:
+    uint8), from the CUDA occupancy calculator on the current card."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    rc = load().pjt_cuda_raster_occupancy(
+        mode.v, mode.h, 8 // scale, _OUT_KINDS[dtype], ctypes.byref(blocks),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return blocks.value, smem.value
+
+
 def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
                     batch: int, gh: int, gw: int, out_h: int, out_w: int,
                     oys: Optional[torch.Tensor] = None,
@@ -445,8 +465,10 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
     each, image b at MCU b*gh*gw) -> ``[batch, out_h, out_w, 3]``.
 
     ``oys``/``oxs`` (int32 ``[batch]``, same device) are per-image crop
-    origins in output pixels; without them the top-left ``out_h x out_w``
-    of each image is kept.  ``norm`` gives the output dtype and
+    origins in output pixels, read as ``jax.lax.dynamic_slice`` reads its
+    start indices (negative: from the far end; then clamped into the
+    grid); without them the top-left ``out_h x out_w`` of each image is
+    kept.  ``norm`` gives the output dtype and
     ``(x - mean) * inv_std`` (see :func:`apply_norm`); None keeps uint8.
     CPU tensors take :func:`raster_epilogue_reference`; CUDA tensors the
     kernel in ``csrc/raster_epilogue.cu``, or the call raises.

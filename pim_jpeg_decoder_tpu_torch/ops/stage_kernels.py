@@ -132,6 +132,20 @@ def dequantize_stage(coeffs: torch.Tensor, qidx: torch.Tensor,
     return out
 
 
+def dequant_occupancy(wire_bytes: int, mode: S.ModeSpec) -> int:
+    """Blocks of the dequantize kernel for this wire and ``mode`` that one
+    SM holds, from the CUDA occupancy calculator on the current card."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    blocks = ctypes.c_int()
+    rc = load().pjt_cuda_dequant_occupancy(wire_bytes, mode.g,
+                                           ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return blocks.value
+
+
 def idct_stage(deq: torch.Tensor, mode: S.ModeSpec) -> torch.Tensor:
     """int16 ``[M, g, 64]`` dequantized -> int16 ``[M, g, 64]`` samples,
     row-major."""

@@ -1,5 +1,6 @@
-"""A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``)
-between two checkouts, in one call on one card.
+"""A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``),
+the raster epilogue and the dequantize stage kernel between two checkouts,
+in one call on one card.
 
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent DIR
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --root DIR
@@ -18,8 +19,13 @@ or "slower" only beyond it, else "within band".
 
 Geometries (``GEOMETRIES``): both kernels in all 5 modes at M=16,384 on
 the int8 wire, and 4:2:0 at M=16,384 int16 and at M=196,608 (a B=256
-ImageNet batch) on both wires.  Inputs: Laplace(0, 6) coefficients, Q=16
-quantizer rows (one of 16-bit values), drawn from a fixed seed, rotated
+ImageNet batch) on both wires; the raster epilogue
+(``EPILOGUE_GEOMETRIES``) on that batch (256 images of 24 x 32 4:2:0 MCUs,
+500x375) at scale 1 -> uint8, scale 2 -> bfloat16 normalised, and 224x224
+crops of the scale-1 batch -> bfloat16 normalised; the dequantize stage
+(``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires.
+Inputs: Laplace(0, 6) coefficients, Q=16 quantizer rows (one of 16-bit
+values), uniform bytes for the epilogue, drawn from a fixed seed, rotated
 past twice the L2 (``utils/devbench.rotation_count``); each time is the
 median of 30 launches timed with CUDA events
 (``utils/devbench.seconds_per_launch``), with their min and max.
@@ -48,11 +54,44 @@ GEOMETRIES: Tuple[Tuple[str, tuple, int, int], ...] = tuple(
     [(k, key, 16384, 1) for k in ("rgb", "ycbcr") for key in MODE_KEYS]
     + [(k, (2, 2, 3), m, w) for k in ("rgb", "ycbcr")
        for m, w in ((16384, 2), (196608, 1), (196608, 2))])
+# The B=256 ImageNet batch of the epilogue: images, MCU rows and columns
+# per image (4:2:0), image height and width.
+BATCH = (256, 24, 32, 375, 500)
+IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
+                     std=(58.395, 57.12, 57.375))
+# (label, scale, output dtype name or None for uint8, crop size or None)
+EPILOGUE_GEOMETRIES: Tuple[Tuple[str, int, Optional[str], Optional[tuple]],
+                           ...] = (
+    ("scale 1 -> uint8", 1, None, None),
+    ("scale 2 -> bfloat16", 2, "bfloat16", None),
+    ("224x224 crops -> bfloat16", 1, "bfloat16", (224, 224)))
+# (M, wire bytes) of the dequantize stage at 4:2:0
+DEQUANT_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
+    (16384, 2), (16384, 1), (196608, 2), (196608, 1))
 ORDER = ("parent", "change", "change", "parent")
 
 
 def geometry_name(kernel: str, mode_name: str, m: int, wire: int) -> str:
     return f"{kernel} {mode_name} M={m} int{8 * wire}"
+
+
+def epilogue_name(label: str) -> str:
+    b, _, _, h, w = BATCH
+    return f"epilogue B={b} {w}x{h} 4:2:0 {label}"
+
+
+def dequant_name(m: int, wire: int) -> str:
+    return geometry_name("dequant", "4:2:0", m, wire)
+
+
+def geometry_names() -> List[str]:
+    """Every geometry ``side`` times, in its order."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+
+    return ([geometry_name(k, S.mode_for(key).name, m, w)
+             for k, key, m, w in GEOMETRIES]
+            + [epilogue_name(label) for label, _, _, _ in EPILOGUE_GEOMETRIES]
+            + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES])
 
 
 def _inputs(torch, mode, m: int, wire: int, dev):
@@ -81,32 +120,95 @@ def _inputs(torch, mode, m: int, wire: int, dev):
     return bufs
 
 
+def crop_origins(torch, rng, batch: int, scale: int, image_hw: tuple,
+                 crop: tuple, dev) -> tuple:
+    """Seeded ``(oy, ox)`` int32 tensors on ``dev``: origins anywhere a
+    ``crop`` fits in the image decoded at ``scale``."""
+    import numpy as np
+
+    return tuple(
+        torch.from_numpy(rng.integers(0, full // scale - size + 1, batch)
+                         .astype(np.int32)).to(dev)
+        for full, size in zip(image_hw, crop))
+
+
+def _epilogue_case(torch, mode, scale: int, dtype_name: Optional[str],
+                   crop: Optional[tuple], dev):
+    """``(fn, rotating raw inputs)`` of one epilogue geometry: uniform
+    bytes in the decode kernels' layout, and seeded crop origins."""
+    import numpy as np
+
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import raster_epilogue
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
+
+    b, gh, gw, height, width = BATCH
+    n = 8 // scale
+    rng = np.random.default_rng(SEED + 97 * scale + (5 if crop else 0))
+    shape = (3, mode.luma_slots, n * n, b * gh * gw)
+    raws = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+            .to(dev) for _ in range(rotation_count(int(np.prod(shape)), dev))]
+    norm = (_norm_static(getattr(torch, dtype_name), **IMAGENET_NORM)
+            if dtype_name else None)
+    out_h, out_w = crop or (-(-height // scale), -(-width // scale))
+    origins = (crop_origins(torch, rng, b, scale, (height, width), crop, dev)
+               if crop else ())
+
+    def fn(raw):
+        return raster_epilogue(raw, mode, scale, b, gh, gw, out_h, out_w,
+                               *origins, norm=norm)
+
+    return fn, raws
+
+
+def _as_bytes(torch, out) -> bytes:
+    """The bytes of a tensor on the card (bfloat16 through its bits)."""
+    flat = out.contiguous().view(-1)
+    if flat.dtype in (torch.bfloat16, torch.float16):
+        flat = flat.view(torch.int16)
+    return flat.cpu().numpy().tobytes()
+
+
 def side() -> dict:
     """Time every geometry with the imported package's kernels."""
     import torch
 
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
+    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import dequantize_stage
     from pim_jpeg_decoder_tpu_torch.utils.devbench import seconds_per_launch
 
     dev = torch.device("cuda", 0)
     results = {}
-    for kernel, key, m, wire in GEOMETRIES:
-        mode = S.mode_for(key)
-        bufs = _inputs(torch, mode, m, wire, dev)
 
-        def fn(b, yc=kernel == "ycbcr"):
-            return decode_mcus(*b, mode, raw=True, ycbcr=yc)
-
+    def measure(name: str, fn, bufs) -> None:
         out = fn(bufs[0])
         torch.cuda.synchronize()
-        digest = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
+        digest = hashlib.sha1(_as_bytes(torch, out)).hexdigest()
         del out
         us = sorted(t * 1e6 for t in seconds_per_launch(fn, bufs,
                                                           samples=True))
-        results[geometry_name(kernel, mode.name, m, wire)] = {
-            "us": statistics.median(us), "min_us": us[0], "max_us": us[-1],
-            "sha1": digest}
+        results[name] = {"us": statistics.median(us), "min_us": us[0],
+                         "max_us": us[-1], "sha1": digest}
+
+    for kernel, key, m, wire in GEOMETRIES:
+        mode = S.mode_for(key)
+        bufs = _inputs(torch, mode, m, wire, dev)
+        measure(geometry_name(kernel, mode.name, m, wire),
+                lambda b, yc=kernel == "ycbcr": decode_mcus(
+                    *b, mode, raw=True, ycbcr=yc), bufs)
+        del bufs
+        torch.cuda.empty_cache()
+    mode = S.mode_for((2, 2, 3))
+    for label, scale, dtype_name, crop in EPILOGUE_GEOMETRIES:
+        fn, raws = _epilogue_case(torch, mode, scale, dtype_name, crop, dev)
+        measure(epilogue_name(label), fn, raws)
+        del fn, raws
+        torch.cuda.empty_cache()
+    for m, wire in DEQUANT_GEOMETRIES:
+        bufs = _inputs(torch, mode, m, wire, dev)
+        measure(dequant_name(m, wire),
+                lambda b: dequantize_stage(*b, mode), bufs)
         del bufs
         torch.cuda.empty_cache()
     return {"card": torch.cuda.get_device_name(0), "results": results}

@@ -31,6 +31,65 @@ def test_geometries_cover_every_mode_and_both_wires():
         assert f"{kernel} 4:2:0 M=196608 int8" in names
 
 
+def test_epilogue_and_dequantize_geometries_are_named():
+    names = A.geometry_names()
+    assert len(names) == len(set(names)) == 16 + 3 + 4
+    assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
+                          for k, key, m, w in A.GEOMETRIES]
+    for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
+                  "224x224 crops -> bfloat16"):
+        assert f"epilogue B=256 500x375 4:2:0 {label}" in names
+    for m in (16384, 196608):
+        for bits in (8, 16):
+            assert f"dequant 4:2:0 M={m} int{bits}" in names
+    # The batch is 256 images of 24 x 32 4:2:0 MCUs covering 500x375.
+    b, gh, gw, height, width = A.BATCH
+    mode = S.mode_for((2, 2, 3))
+    assert b * gh * gw == 196608
+    assert gh == -(-height // mode.mcu_px_h)
+    assert gw == -(-width // mode.mcu_px_w)
+    for _, scale, dtype_name, crop in A.EPILOGUE_GEOMETRIES:
+        assert scale in (1, 2, 4, 8)
+        assert dtype_name is None or hasattr(torch, dtype_name)
+        if crop:
+            assert crop[0] <= height // scale and crop[1] <= width // scale
+
+
+def _named_runs(us_by_name, digests=None):
+    """Four runs in ``A.ORDER`` of several geometries: name -> (parent
+    pair, change pair)."""
+    runs = []
+    for i, who in enumerate(A.ORDER):
+        first = A.ORDER.index(who) == i
+        runs.append({"card": "x", "results": {
+            name: {"us": pair[who == "change"][0 if first else 1],
+                   "min_us": 0, "max_us": 0,
+                   "sha1": (digests or {}).get(name, "a" * 4)[i]}
+            for name, pair in us_by_name.items()}})
+    return runs
+
+
+@pytest.mark.parametrize("name", [
+    "epilogue B=256 500x375 4:2:0 scale 1 -> uint8",
+    "epilogue B=256 500x375 4:2:0 224x224 crops -> bfloat16",
+    "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8"])
+def test_verdict_on_the_new_geometries(name):
+    """Each geometry gets its own verdict from its own band: the named one
+    faster beyond it, a decode kernel beside it within its band."""
+    assert name in A.geometry_names()
+    other = "rgb 4:2:0 M=16384 int8"
+    table = A.verdict(_named_runs({
+        name: ((392.0, 391.0), (132.0, 133.0)),
+        other: ((19.0, 19.1), (19.05, 18.95))}))
+    assert table[name]["verdict"] == "faster"
+    assert table[name]["speedup"] == pytest.approx(783.0 / 265.0)
+    assert table[other]["verdict"] == "within band"
+    bad = A.digests_agree(_named_runs(
+        {name: ((1, 1), (1, 1)), other: ((1, 1), (1, 1))},
+        digests={name: "abaa"}))
+    assert bad == [name]
+
+
 @pytest.mark.parametrize("parent, change, word", [
     ((20.0, 20.2), (15.0, 15.1), "faster"),
     ((15.0, 15.1), (20.0, 20.2), "slower"),
@@ -64,3 +123,21 @@ def test_exits_2_without_a_card(capsys):
 def test_one_side_is_required():
     with pytest.raises(SystemExit):
         A.main([])
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_crop_origins_fit_the_scaled_image(scale):
+    """Seeded origins leave room for the crop in the image at ``scale``,
+    and the same seed gives the same origins."""
+    import numpy as np
+
+    b, _, _, height, width = A.BATCH
+    crop = (224 // scale, 224 // scale)
+    oy, ox = A.crop_origins(torch, np.random.default_rng(3), b, scale,
+                            (height, width), crop, torch.device("cpu"))
+    again = A.crop_origins(torch, np.random.default_rng(3), b, scale,
+                           (height, width), crop, torch.device("cpu"))
+    for o, full, size in ((oy, height, crop[0]), (ox, width, crop[1])):
+        assert o.dtype == torch.int32 and o.shape == (b,)
+        assert int(o.min()) >= 0 and int(o.max()) <= full // scale - size
+    assert torch.equal(oy, again[0]) and torch.equal(ox, again[1])

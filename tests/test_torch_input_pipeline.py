@@ -196,6 +196,74 @@ def test_raster_epilogue_reference_matches_jax(mode_key, scale):
                     J._apply_norm(crops, jnorm))
 
 
+# Where the CUDA epilogue branches: one MCU column, a ragged 32-column
+# chunk, a chunk loop with unaligned runs.
+BAND_GWS = (1, 17, 33)
+BAND_WIDTHS = ("one", "odd", "full")
+
+
+@pytest.mark.parametrize("width", BAND_WIDTHS)
+@pytest.mark.parametrize("gw", BAND_GWS)
+@pytest.mark.parametrize("scale", [1, 2])
+@pytest.mark.parametrize("mode_key", [(1, 1, 1), (2, 2, 3)],
+                         ids=["gray", "4:2:0"])
+def test_raster_epilogue_reference_matches_jax_at_band_edges(mode_key, scale,
+                                                             gw, width):
+    """The plain epilogue (the oracle of the CUDA kernel on the card)
+    against the JAX package where the kernel's band design branches: B = 1,
+    ``gw`` of 1, 17 and 33 MCU columns, an output 1, an odd number and the
+    full grid wide, and crop origins that ``dynamic_slice`` clamps
+    (negative, past the far edge, and exactly at both edges).  Tolerance
+    0."""
+    import jax
+
+    mode = S.mode_for(mode_key)
+    n = 8 // scale
+    b, gh = 1, 2
+    rng = np.random.default_rng(1000 * scale + 10 * gw + mode.g)
+    raw = rng.integers(0, 256, (3, mode.luma_slots, n * n, b * gh * gw + 5),
+                       dtype=np.uint8)
+    grid_h, grid_w = gh * mode.v * n, gw * mode.h * n
+    ow = {"one": 1, "odd": (grid_w // 2) | 1, "full": grid_w}[width]
+    oh = max(1, grid_h - 3)
+    t_raw = torch.from_numpy(raw)
+    img = J._raster_relayout(jnp.asarray(raw), mode, scale, b, gh, gw)
+    for dtype_name in ("u8", "bf16_norm"):
+        tdt, jdt, stats = DTYPES[dtype_name]
+        jnorm = J._norm_static(jdt, stats.get("mean"), stats.get("std"))
+        tnorm = T._norm_static(tdt, stats.get("mean"), stats.get("std"))
+        assert_same(K.raster_epilogue_reference(t_raw, mode, scale, b, gh,
+                                                gw, oh, ow, norm=tnorm),
+                    J._apply_norm(img[:, :oh, :ow], jnorm))
+        for oy, ox in ((0, 0), (grid_h - oh, grid_w - ow), (-3, -1),
+                       (grid_h + 7, grid_w + 2), (1, grid_w - ow + 1)):
+            oys = np.array([oy], np.int32)
+            oxs = np.array([ox], np.int32)
+            crops = jax.vmap(lambda im, y, x: jax.lax.dynamic_slice(
+                im, (y, x, 0), (oh, ow, 3)))(img, oys, oxs)
+            assert_same(K.raster_epilogue(t_raw, mode, scale, b, gh, gw, oh,
+                                          ow, torch.from_numpy(oys),
+                                          torch.from_numpy(oxs), norm=tnorm),
+                        J._apply_norm(crops, jnorm))
+
+
+@pytest.mark.parametrize("dim,size", [(16, 13), (8, 8), (40, 1)])
+def test_crop_origins_read_start_indices_as_dynamic_slice(dim, size):
+    """Every start index from far below to far above the axis: negative
+    ones count from the far end, then all are clamped, as
+    ``jax.lax.dynamic_slice`` does (the rule both the plain epilogue and
+    the CUDA kernel implement)."""
+    import jax
+
+    starts = np.arange(-2 * dim - 3, 2 * dim + 4, dtype=np.int32)
+    axis = jnp.arange(dim, dtype=jnp.int32)
+    want = np.asarray(jax.vmap(lambda s: jax.lax.dynamic_slice(
+        axis, (s,), (size,))[0])(starts))
+    got = K._crop_origins(torch.from_numpy(starts), dim, size)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.min() == 0 and got.max() == dim - size
+
+
 @pytest.mark.parametrize("dtype_name,mean,std", [
     ("f32", None, None), ("bf16_norm", 127.5, 64.0),
     ("bf16_norm", IMAGENET["mean"], IMAGENET["std"]),

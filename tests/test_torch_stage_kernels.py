@@ -91,6 +91,45 @@ def test_dequantize_stage_matches_jax(mode_key, wire):
     assert got.min() == -32768 and got.max() == 32767   # the clamps bite
 
 
+@WIRES
+@MODES
+def test_dequantize_stage_out_of_range_qidx_matches_jax(mode_key, wire):
+    """``qidx`` of Q and -1: a zero quantizer row, as the JAX kernel's
+    one-hot gather gives (the CUDA stage kernel masks such a row; this
+    holds its oracle to the JAX package)."""
+    mode = S.mode_for(mode_key)
+    coeffs, qidx, qpool = make_inputs(mode, wire, seed=17 + mode.g)
+    qidx[0] = qpool.shape[0]        # an all-max block, out of range above
+    qidx[1] = -1                    # an all-min block, out of range below
+    qidx[M // 2] = qpool.shape[0]
+    qidx[M - 1] = -1
+    want = np.asarray(J.dequantize_stage(_pad(coeffs), _pad(qidx), qpool,
+                                         mode=mode, lane_tile=LANE_TILE))[:M]
+    got = P.dequantize_stage(*_port_inputs(coeffs, qidx, qpool), mode)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for m in (0, 1, M // 2, M - 1):
+        assert not got[m].any()
+    assert got[2].any()
+
+
+@pytest.mark.parametrize("m", [1, 31, 33])
+@WIRES
+@pytest.mark.parametrize("mode_key", [(1, 1, 1), (2, 2, 3)],
+                         ids=["gray", "4:2:0"])
+def test_dequantize_stage_ragged_m_matches_jax(mode_key, wire, m):
+    """M of 1, 31 and 33 (around a warp's 4 blocks of the CUDA kernel),
+    with the extremes that wrap the int32 product."""
+    mode = S.mode_for(mode_key)
+    coeffs, qidx, qpool = (a[:m] if i < 2 else a for i, a in enumerate(
+        make_inputs(mode, wire, seed=m + mode.g)))
+    want = np.asarray(J.dequantize_stage(_pad(coeffs), _pad(qidx), qpool,
+                                         mode=mode,
+                                         lane_tile=LANE_TILE))[:m]
+    got = P.dequantize_stage(*_port_inputs(coeffs, qidx, qpool), mode)
+    assert tuple(got.shape) == (m, mode.g, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @MODES
 def test_idct_stage_matches_jax(mode_key):
     """On dequantized extremes (the clamps, int32 wrap in the butterfly):
