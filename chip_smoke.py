@@ -34,7 +34,11 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    RGB and YCbCr kernels also in every mode, both wires, at M values
    around their 32-MCU tile and 16-byte stores (``TILE_MS``: 1, 15, 17, 31,
    33, 196,608) and on a ``coeffs[5:]`` slice of 1,027 MCUs, with
-   out-of-range ``qidx`` entries (a zero quantizer row), tolerance 0;
+   out-of-range ``qidx`` entries (a zero quantizer row), tolerance 0; the
+   IDCT and colour stage kernels where their tiles and store forms branch
+   (``stage_tile_cases``: every mode, both wires, M of ``STAGE_MS`` and a
+   ``[5:]`` slice; the colour stage on the IDCT output, the dequantized
+   extremes and full-range int16), tolerance 0, staged == fused;
 3. the main paths, each with the launch counts set to 0 just before it and
    read just after: ``cli.main`` on an ImageNet-val-like corpus (every BMP
    equal to the oracle raster, the same BMPs with ``--transport rgb`` and
@@ -350,6 +354,7 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
     n_epi = epilogue_cases(torch, dev, rng, max_err)
     n_band = epilogue_band_cases(torch, dev, rng)
     n_deq = dequant_cases(torch, dev, rng, max_err)
+    n_stage = stage_tile_cases(torch, dev, rng, max_err)
     mxu_line = mxu_cases(torch, dev, rng, max_err)
     vlc_line = vlc_cases(torch, dev, max_err)
     print(f"[2 kernels] {cases} decode, stage and kernel_opt "
@@ -373,6 +378,12 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
           f"{n_deq} dequantize-stage cases byte-identical (5 modes x i16/i8 "
           f"x M={list(DEQUANT_MS)}, wire-limit coefficients against 16-bit "
           f"quantizers, qidx Q and -1; staged == fused in each)", flush=True)
+    print(f"[2 kernels] {n_stage} IDCT/colour stage tile cases "
+          f"byte-identical (5 modes x i16/i8 x M={list(STAGE_MS)} and a "
+          f"[5:] slice of 1,027 MCUs: the IDCT on the dequantized extremes, "
+          f"the colour stage on the IDCT output, the dequantized extremes "
+          f"and full-range int16 with 32767 and -32768 blocks; staged == "
+          f"fused in each)", flush=True)
     print(f"[2 kernels] {mxu_line}", flush=True)
     print(f"[2 kernels] {vlc_line}", flush=True)
     return max_err
@@ -703,6 +714,70 @@ def dequant_cases(torch, dev, rng, max_err) -> int:
                          f"{np.dtype(wire).name} M={m}")
                 cases += 1
                 del x, qi, got, want, staged, fused
+        torch.cuda.empty_cache()
+    return cases
+
+
+# M values of the IDCT and colour stage cases: TILE_MS, where the colour
+# kernel's 32-MCU tile and 8-byte stores branch (16 and 24: M % 8 == 0, a
+# ragged last tile; the odd ones take the byte stores) and an odd count
+# that ends inside a CUDA block.
+STAGE_MS = TILE_MS + (16, 24, 1027)
+
+
+def stage_tile_cases(torch, dev, rng, max_err) -> int:
+    """idct_stage and color_stage against their plain versions, tolerance
+    0, in every mode on both wires at the M values of ``STAGE_MS`` and on a
+    ``[5:]`` slice (1,027 MCUs from MCU 5): the IDCT on the dequantized
+    extremes, the colour stage on the IDCT's output, on the dequantized
+    coefficients and on full-range int16 (32767 and -32768 blocks, the
+    BT.601 products wrap); and decode_mcus_staged equal to decode_mcus."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops import stage_kernels as SK
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, qpool_to_device)
+
+    def same(name, got, want, what) -> None:
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if got.shape != want.shape or err:
+            fail(f"{name} stage kernel != plain version: {what} "
+                 f"max|err|={err}")
+
+    cases = 0
+    for key in sorted(S.MODES):
+        mode = S.mode_for(key)
+        for wire in (np.int16, np.int8):
+            for m in STAGE_MS + ("slice",):
+                n = 1032 if m == "slice" else m
+                what = f"{mode.name} {np.dtype(wire).name} M={m}"
+                coeffs, qidx, qpool = synthetic_batch(mode, max(n, 3), wire,
+                                                      rng, extreme=True)
+                qidx[n // 2] = qpool.shape[0]
+                qidx[n - 1] = -1
+                x = coeffs_to_device(coeffs[:n], dev)
+                qi = torch.from_numpy(qidx[:n]).to(dev)
+                qp = qpool_to_device(qpool, dev)
+                deq = SK.dequantize_stage(x, qi, qp, mode)
+                full = rng.integers(-32768, 32768, (n, mode.g, 64),
+                                    dtype=np.int16)
+                full[0], full[min(1, n - 1)] = 32767, -32768
+                full = torch.from_numpy(full).to(dev)
+                if m == "slice":   # inputs from MCU 5, 16-byte aligned
+                    x, qi, deq, full = (t[5:] for t in (x, qi, deq, full))
+                spat = SK.idct_stage(deq, mode)
+                same("idct", spat, SK.idct_stage_reference(deq), what)
+                for src in (spat, deq, full):
+                    same("color", SK.color_stage(src, mode, raw=True),
+                         SK.color_stage_reference(src, mode, raw=True), what)
+                staged = SK.decode_mcus_staged(x, qi, qp, mode)
+                fused = decode_mcus(x, qi, qp, mode)
+                torch.cuda.synchronize()
+                if not torch.equal(staged, fused):
+                    fail(f"decode_mcus_staged != decode_mcus: {what}")
+                cases += 5
+                del x, qi, deq, full, spat, staged, fused
         torch.cuda.empty_cache()
     return cases
 
@@ -1413,14 +1488,17 @@ def tile_resources(torch, card: str, medians: dict) -> None:
 
 
 def redesign_resources(torch, card: str) -> None:
-    """Registers and static shared memory (ptxas, ``nvcc.log``) of every
-    instantiation of the banded raster epilogue and of the address-order
-    dequantize stage kernel, with the blocks an SM holds (the occupancy
-    calculator) for the 4:2:0 ones that phase 4 times."""
+    """Registers (ptxas, ``nvcc.log``) of every instantiation of the banded
+    raster epilogue and of the dequantize, IDCT and colour stage kernels,
+    with the shared memory and blocks an SM holds (the occupancy
+    calculator) of the 4:2:0 epilogue and dequantize ones that phase 4
+    times and of every IDCT and colour one (the IDCT kernel has one
+    instantiation; the colour kernel one a mode and store form)."""
     from pim_jpeg_decoder_tpu_torch.ops import _build
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import raster_occupancy
-    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import dequant_occupancy
+    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
+        color_occupancy, dequant_occupancy, idct_occupancy)
 
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         log = f.read()
@@ -1431,8 +1509,9 @@ def redesign_resources(torch, card: str) -> None:
     epi = re.compile(r"raster_epilogue_kernelI(h|f|13__nv_bfloat16|6__half)"
                      r"Li(\d+)ELi(\d+)E")
     deq = re.compile(r"dequant_stage_kernelI([as])Li(\d+)E")
+    color = re.compile(r"color_stage_kernelILi(\d)ELi(\d)ELi(\d)ELb([01])E")
     mode = S.mode_for((2, 2, 3))
-    found = {"epilogue": [], "dequant": []}
+    found = {"epilogue": [], "dequant": [], "idct": [], "color": []}
     for mangled, regs in entries:
         hit = epi.search(mangled)
         if hit:
@@ -1454,15 +1533,36 @@ def redesign_resources(torch, card: str) -> None:
                 print(f"[4 times] dequant_stage_kernel 4:2:0 int{8 * wire}: "
                       f"{regs} registers, no shared memory, {blocks} "
                       f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-    if len(found["epilogue"]) != 32 or len(found["dequant"]) != 8:
-        fail(f"nvcc.log names {len(found['epilogue'])} epilogue and "
-             f"{len(found['dequant'])} dequantize instantiations, expected "
-             f"32 and 8")
+        if "idct_stage_kernel" in mangled:
+            found["idct"].append(int(regs))
+            blocks, smem = idct_occupancy()
+            print(f"[4 times] idct_stage_kernel: {regs} registers, {smem} B "
+                  f"static shared memory, {blocks} blocks/SM "
+                  f"({blocks * 8} warps) | {card}", flush=True)
+        hit = color.search(mangled)
+        if hit:
+            found["color"].append(int(regs))
+            key = tuple(int(hit.group(i)) for i in (1, 2, 3))
+            vec8 = hit.group(4) == "1"
+            blocks, smem = color_occupancy(S.mode_for(key), vec8)
+            print(f"[4 times] color_stage_kernel {S.mode_for(key).name} "
+                  f"({'8-byte' if vec8 else 'byte'} stores): {regs} "
+                  f"registers, {smem} B static shared memory, {blocks} "
+                  f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
+    want = {"epilogue": 32, "dequant": 8, "idct": 1, "color": 10}
+    if {k: len(v) for k, v in found.items()} != want:
+        fail(f"nvcc.log names {len(found['epilogue'])} epilogue, "
+             f"{len(found['dequant'])} dequantize, {len(found['idct'])} IDCT "
+             f"and {len(found['color'])} colour instantiations, expected "
+             f"32, 8, 1 and 10")
     print(f"[4 times] raster_epilogue_kernel: 32 instantiations (4 output "
           f"types x n 8/4/2/1 x h 1/2), {min(found['epilogue'])}-"
           f"{max(found['epilogue'])} registers; dequant_stage_kernel: 8 "
           f"(2 wires x g 1/3/4/6), {min(found['dequant'])}-"
-          f"{max(found['dequant'])} registers | {card}", flush=True)
+          f"{max(found['dequant'])} registers; idct_stage_kernel: 1, "
+          f"{found['idct'][0]} registers; color_stage_kernel: 10 (5 modes x "
+          f"8-byte/byte stores), {min(found['color'])}-"
+          f"{max(found['color'])} registers | {card}", flush=True)
 
 
 def stage_times(torch, mode, bufs, times: dict, card: str) -> None:

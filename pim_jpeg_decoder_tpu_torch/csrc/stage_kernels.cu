@@ -34,42 +34,56 @@
 //     device memory.  An out-of-range qidx reads row 0 and is masked to a
 //     zero quantizer (decode_common.cuh: quant_row explains why the row
 //     stays a valid address);
-//   - IDCT: one thread per 8x8 block, 16-byte loads and stores of its 128
-//     contiguous bytes, neighbouring threads on neighbouring blocks;
+//   - IDCT: every 8x8 block is split over 8 lanes, as the fused tile
+//     kernels split it (decode_tile.cuh): lane i loads row v = i of its
+//     block (16 bytes; a warp's 4 blocks are 512 contiguous bytes), parks
+//     it in a per-block int16 scratch and reads column u = i back, runs
+//     pass 1 down it, parks the 8 int32 results in decode_tile.cuh's
+//     transpose scratch (XPOSE_ROW rows), reads spatial row r = i back and
+//     runs pass 2 along it.  Lane i then holds exactly row r of the
+//     row-major output: one 16-byte store, a block's 8 lanes its 128
+//     contiguous bytes.  Both scratches are conflict-free both ways (a
+//     block's input rows take 36 words: the 4 blocks of a warp start 4
+//     banks apart).  A 16,384-MCU launch is 786,432 threads, about three
+//     waves, where one thread per block made one partial wave that waited
+//     on its 8 serial loads;
 //   - colour: a CUDA block copies the contiguous samples of its
-//     COLOR_TILE MCUs into shared memory with coalesced 4-byte loads, then
-//     computes each output pixel with the MCU index fastest across a warp,
-//     so the uint8 stores coalesce.  Rows of the shared tile are padded by
-//     one word, so the 32 MCUs a warp reads fall on 32 banks.
+//     COLOR_TILE MCUs into shared memory with 16-byte cp.async copies (each
+//     slot padded to 36 words, 8 more words after every run of 8 MCUs, so
+//     that the reads below fall on distinct banks), then a lane takes one
+//     pixel position of one run of 8 MCUs: in colour modes a chroma pixel,
+//     its three BT.601 chroma terms once (chroma_terms, bt601's wrap-around
+//     arithmetic on any int16 sample) and then the H*V luma pixels it
+//     serves; in gray one luma pixel.  Each output row gets 8 bytes a lane
+//     and plane (4 lanes fill the 32 bytes of a row's tile: whole sectors)
+//     when M % 8 == 0 and the output is 8-byte aligned; else the same lanes
+//     store byte by byte (the VEC8 = false instantiation).  Samples stay
+//     int16 in shared memory: the stage takes any int16 sample, not only
+//     the IDCT's [-128, 127].
 // The ragged end (M not a multiple of the tile) is masked in the kernels.
+//
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4, PERF.md): the
+// IDCT kernel has 26 registers and 17,920 B of shared memory, 8 blocks an
+// SM; 4:2:0, M=16,384, int16 it takes 12.0-12.2 us (61% of its 7.51 us
+// byte bound), at M=196,608 104.6 us (86%).  The 4:2:0 colour kernel has
+// 60 registers (48 with byte stores) and 27,776 B, 4 blocks an SM: 14.0-
+// 14.4 us (53%) and 122.9 us (73%): at M=16,384 its 512 tiles are one
+// wave that loads, then computes and stores, with nothing to overlap.
 
 #include "decode_common.cuh"
+#include "decode_tile.cuh"
 
 namespace {
 
 constexpr int DEQ_THREADS = 256;   // dequantize: threads per CUDA block
 constexpr int DEQ_UNROLL = 4;      // 16-byte output vectors per thread
-constexpr int IDCT_THREADS = 256;  // 8x8 blocks per CUDA block
-constexpr int COLOR_TILE = 32;     // MCUs per CUDA block (one warp wide)
-
-// Stores 64 values that fit in int16 at dst (16-byte aligned) with 16-byte
-// stores.
-template <typename V>
-__device__ __forceinline__ void store_block_i16(int16_t* __restrict__ dst,
-                                                const V (&v)[64]) {
-  int4* vec = reinterpret_cast<int4*>(dst);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = (static_cast<uint32_t>(v[8 * i + 2 * j]) & 0xffffu) |
-             (static_cast<uint32_t>(v[8 * i + 2 * j + 1]) << 16);
-    }
-    vec[i] = make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
-                       static_cast<int>(w[2]), static_cast<int>(w[3]));
-  }
-}
+constexpr int IDCT_THREADS = 256;  // IDCT: threads per CUDA block
+constexpr int IDCT_BLOCKS = IDCT_THREADS / 8;   // 8x8 blocks per CUDA block
+constexpr int IN_BLOCK = 36;       // words of a block's input transpose
+constexpr int COLOR_TILE = 32;     // colour: MCUs per CUDA block
+constexpr int COLOR_THREADS = 256; // 64 pixel positions x 4 runs of 8 MCUs
+constexpr int SLOT_WORDS = 36;     // a slot's 64 int16 samples + 4 words
+constexpr int RUN_PAD = 8;         // words after each run of 8 MCUs
 
 // 8 consecutive coefficients at src (16-byte aligned on the int16 wire, 8
 // on int8), sign-extended.
@@ -152,69 +166,169 @@ dequant_stage_kernel(const T* __restrict__ coeffs,
   }
 }
 
+// Block blk of the launch on 8 lanes; lane i loads input row v = i and
+// stores output row r = i.  Lanes past the end re-read the last block and
+// store nothing, so that every lane reaches the __syncwarp()s.
 __global__ void __launch_bounds__(IDCT_THREADS)
 idct_stage_kernel(const int16_t* __restrict__ deq,
                   int16_t* __restrict__ out, long long num_blocks) {
+  __shared__ __align__(16) uint32_t rows_in[IDCT_BLOCKS * IN_BLOCK];
+  __shared__ __align__(16) int32_t xpose[IDCT_BLOCKS * XPOSE_BLOCK];
+  const int i = threadIdx.x & 7;
+  const int bj = threadIdx.x >> 3;
   const long long blk =
-      static_cast<long long>(blockIdx.x) * IDCT_THREADS + threadIdx.x;
-  if (blk >= num_blocks) return;
-  int32_t c[64];
-  load_block<int16_t>(deq + static_cast<size_t>(blk) * 64, c);
-  uint32_t x[64];
+      static_cast<long long>(blockIdx.x) * IDCT_BLOCKS + bj;
+  const bool valid = blk < num_blocks;
+  const size_t at = static_cast<size_t>(valid ? blk : num_blocks - 1) * 64 +
+                    i * 8;
+  uint32_t* t = rows_in + bj * IN_BLOCK;
+  *reinterpret_cast<int4*>(t + i * 4) =
+      __ldg(reinterpret_cast<const int4*>(deq + at));
+  __syncwarp();
+  // Pass 1 down column u = i (natural order v*8 + u).
+  const int16_t* th = reinterpret_cast<const int16_t*>(t);
+  uint32_t x[8];
 #pragma unroll
-  for (int k = 0; k < 64; ++k) x[k] = static_cast<uint32_t>(c[k]);
-  int32_t spat[64];   // px*8 + py
-  idct_block(x, spat);
-  int32_t rows[64];   // r*8 + p (decode_kernel.py:_assemble)
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int p = 0; p < 8; ++p) rows[r * 8 + p] = spat[p * 8 + r];
+  for (int v = 0; v < 8; ++v) {
+    x[v] = static_cast<uint32_t>(static_cast<int32_t>(th[v * 8 + i]));
   }
-  store_block_i16(out + static_cast<size_t>(blk) * 64, rows);
+  int32_t o[8];
+  idct_1d<CONST_BITS - PASS1_BITS>(x, o);
+  int32_t* xp = xpose + bj * XPOSE_BLOCK;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) xp[r * XPOSE_ROW + i] = o[r];
+  __syncwarp();
+  // Pass 2 along spatial row r = i: output r*8 + p (_assemble's order).
+  const int4 lo = *reinterpret_cast<const int4*>(xp + i * XPOSE_ROW);
+  const int4 hi = *reinterpret_cast<const int4*>(xp + i * XPOSE_ROW + 4);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  idct_1d<CONST_BITS + PASS1_BITS + 3>(x, o);
+  if (valid) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t a = static_cast<uint32_t>(
+          min(max(o[2 * j], SAMPLE_MIN), SAMPLE_MAX));
+      const uint32_t b = static_cast<uint32_t>(
+          min(max(o[2 * j + 1], SAMPLE_MIN), SAMPLE_MAX));
+      w[j] = (a & 0xffffu) | (b << 16);
+    }
+    *reinterpret_cast<int4*>(out + at) =
+        make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
+                  static_cast<int>(w[2]), static_cast<int>(w[3]));
+  }
 }
 
-// Sample e (slot*64 + r*8 + p) of one MCU's row in the shared tile.
-__device__ __forceinline__ int32_t sample(const uint32_t* mcu, int e) {
-  return static_cast<int16_t>(mcu[e >> 1] >> ((e & 1) * 16));
-}
+// The colour stage's shared tile: COLOR_TILE MCUs of G slots, each slot's
+// 8 rows of 8 int16 samples in 32 words then 4 words of padding, and
+// RUN_PAD words after every 8 MCUs.  A warp reads one pixel row (one
+// sample position of each lane's 8 columns) of 4 runs: the slot padding
+// puts the two luma slots a chroma row serves 4 banks apart, the run
+// padding puts the runs 8 banks apart, so no two words collide.
+template <int G>
+struct ColorTile {
+  static constexpr int kMcuWords = G * SLOT_WORDS;
+  static constexpr int kWords =
+      COLOR_TILE * kMcuWords + (COLOR_TILE / 8) * RUN_PAD;
+};
 
-template <int H, int V, int NC>
-__global__ void __launch_bounds__((NC == 1 ? 1 : H * V + 2) * COLOR_TILE)
+template <int H, int V, int NC, bool VEC8>
+__global__ void __launch_bounds__(COLOR_THREADS)
 color_stage_kernel(const int16_t* __restrict__ spat,
                    uint8_t* __restrict__ out, long long num_mcus) {
   constexpr int GY = H * V;
   constexpr int G = NC == 1 ? 1 : GY + 2;
-  constexpr int WORDS = G * 32;          // one MCU's samples, 32-bit words
-  constexpr int STRIDE = WORDS + 1;      // padded: one bank per MCU
-  __shared__ uint32_t tile[COLOR_TILE * STRIDE];
+  using L = ColorTile<G>;
+  __shared__ __align__(16) uint32_t tile[L::kWords];
 
   const long long m0 = static_cast<long long>(blockIdx.x) * COLOR_TILE;
   const long long left = num_mcus - m0;
   const int valid = left < COLOR_TILE ? static_cast<int>(left) : COLOR_TILE;
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(
-      spat + static_cast<size_t>(m0) * G * 64);
-  for (int i = threadIdx.x; i < valid * WORDS; i += blockDim.x) {
-    tile[(i / WORDS) * STRIDE + i % WORDS] = __ldg(src + i);
+  // The tile's samples are one contiguous run of valid * G * 128 bytes;
+  // chunk k (16 bytes: slot s, row r of MCU mj) goes to its padded place.
+  constexpr int kChunks = G * 8;
+  constexpr int kRounds =
+      (COLOR_TILE * kChunks + COLOR_THREADS - 1) / COLOR_THREADS;
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(spat) +
+                       static_cast<size_t>(m0) * G * 128;
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    const int c = k * COLOR_THREADS + threadIdx.x;
+    if (c < valid * kChunks) {
+      const int mj = c / kChunks, sr = c % kChunks;
+      __pipeline_memcpy_async(
+          tile + mj * L::kMcuWords + (mj >> 3) * RUN_PAD +
+              (sr >> 3) * SLOT_WORDS + (sr & 7) * 4,
+          src + static_cast<size_t>(c) * VEC, VEC);
+    }
   }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
-  store_rgb<GY, 64, COLOR_TILE, G * COLOR_TILE>(
-      out, m0, num_mcus,
-      [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
-        const int px = pix >> 3, py = pix & 7;   // pix = px*8 + py
-        const uint32_t* mcu = tile + mj * STRIDE;
-        const int32_t y = sample(mcu, sl * 64 + py * 8 + px);
-        if (NC == 1) {
-          r = g = b = to_u8(y + 128);
-        } else {
-          // chroma_pix's sample, row-major here: row*8 + col.
-          const int c = chroma_pix<H, V>(sl, pix);
-          const int rm = (c & 7) * 8 + (c >> 3);
-          bt601(y, sample(mcu, GY * 64 + rm), sample(mcu, (GY + 1) * 64 + rm),
-                r, g, b);
+  // Lane: pixel column col and row row (one row a warp) of run `run`.
+  const int col = threadIdx.x & 7;
+  const int run = (threadIdx.x >> 3) & 3;
+  const int row = threadIdx.x >> 5;
+  const int c8 = run * 8;
+  if (c8 >= valid) return;
+  const int n = VEC8 ? 8 : min(valid - c8, 8);
+  const int16_t* base = reinterpret_cast<const int16_t*>(
+      tile + c8 * L::kMcuWords + run * RUN_PAD);
+  // Sample h (r*8 + p) of slot s of the run's MCU j.
+  auto sample = [&](int j, int s, int h) -> int32_t {
+    return base[j * 2 * L::kMcuWords + s * 2 * SLOT_WORDS + h];
+  };
+  const size_t plane = static_cast<size_t>(GY) * 64 * num_mcus;
+  // Output row lr (slot*64 + px*8 + py) of the run's 8 MCUs, 3 planes.
+  auto put = [&](int lr, const uint8_t(&r)[8], const uint8_t(&g)[8],
+                 const uint8_t(&b)[8]) {
+    uint8_t* d = out + static_cast<size_t>(lr) * num_mcus + m0 + c8;
+    if (VEC8) {
+      *reinterpret_cast<uint2*>(d) = pack8(r);
+      *reinterpret_cast<uint2*>(d + plane) = pack8(g);
+      *reinterpret_cast<uint2*>(d + 2 * plane) = pack8(b);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < n) {
+          d[j] = r[j];
+          d[plane + j] = g[j];
+          d[2 * plane + j] = b[j];
         }
-      });
+      }
+    }
+  };
+  if constexpr (NC == 1) {
+    uint8_t y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = to_u8(sample(j, 0, row * 8 + col) + 128);
+    put(col * 8 + row, y, y, y);
+  } else {
+    // Chroma pixel col*8 + row: its terms once, then the GY luma pixels
+    // whose nearest chroma sample it is.
+    int32_t tr[8], tg[8], tb[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      chroma_terms(sample(j, GY, row * 8 + col),
+                   sample(j, GY + 1, row * 8 + col), tr[j], tg[j], tb[j]);
+    }
+#pragma unroll
+    for (int k = 0; k < GY; ++k) {
+      const int lr = luma_of_chroma<H, V>(col * 8 + row, k);
+      const int sl = lr >> 6, px = (lr >> 3) & 7, py = lr & 7;
+      uint8_t r[8], g[8], b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int32_t y128 = sample(j, sl, py * 8 + px) + 128;
+        r[j] = to_u8(y128 + tr[j]);
+        g[j] = to_u8(y128 + tg[j]);
+        b[j] = to_u8(y128 + tb[j]);
+      }
+      put(lr, r, g, b);
+    }
+  }
 }
 
 template <typename T, int G>
@@ -274,15 +388,73 @@ int dequant_occupancy(int g, int* blocks) {
       blocks, kernel, DEQ_THREADS, 0));
 }
 
-template <int H, int V, int NC>
+// The largest shared-memory carveout for a kernel, asked once per kernel,
+// so that shared memory does not cap the blocks an SM holds (8 IDCT blocks
+// of 17.9 KB; registers hold the 4:2:0 colour tile, 27.8 KB, to 4).
+inline cudaError_t max_shared(const void* kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The blocks of `threads` an SM holds and the static shared memory of
+// `kernel` (after max_shared, as the launches see it).
+inline int occupancy(const void* kernel, cudaError_t ready, int threads,
+                     int* blocks, int* smem) {
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess) {
+    *smem = static_cast<int>(attr.sharedSizeBytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      threads, 0);
+  }
+  return static_cast<int>(e);
+}
+
+const void* idct_kernel(cudaError_t& ready) {
+  const void* kernel = reinterpret_cast<const void*>(idct_stage_kernel);
+  static const cudaError_t prepared = max_shared(kernel);
+  ready = prepared;
+  return kernel;
+}
+
+template <int H, int V, int NC, bool VEC8>
+const void* color_kernel(cudaError_t& ready) {
+  const void* kernel =
+      reinterpret_cast<const void*>(color_stage_kernel<H, V, NC, VEC8>);
+  static const cudaError_t prepared = max_shared(kernel);
+  ready = prepared;
+  return kernel;
+}
+
+template <int H, int V, int NC, bool VEC8>
 int launch_color(const void* spat, void* out, long long num_mcus,
                  cudaStream_t stream) {
-  constexpr int G = NC == 1 ? 1 : H * V + 2;
-  color_stage_kernel<H, V, NC>
-      <<<grid(num_mcus, COLOR_TILE), G * COLOR_TILE, 0, stream>>>(
+  cudaError_t ready;
+  color_kernel<H, V, NC, VEC8>(ready);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  color_stage_kernel<H, V, NC, VEC8>
+      <<<grid(num_mcus, COLOR_TILE), COLOR_THREADS, 0, stream>>>(
           static_cast<const int16_t*>(spat), static_cast<uint8_t*>(out),
           num_mcus);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int H, int V, int NC>
+struct ColorMode {
+  static constexpr int kH = H, kV = V, kNC = NC;
+};
+
+// f(ColorMode<h, v, ncomp>{}) for the five sampling modes.
+template <typename F>
+int color_mode(int h, int v, int ncomp, F f) {
+  if (ncomp == 1 && h == 1 && v == 1) return f(ColorMode<1, 1, 1>{});
+  if (ncomp == 3 && h == 1 && v == 1) return f(ColorMode<1, 1, 3>{});
+  if (ncomp == 3 && h == 2 && v == 1) return f(ColorMode<2, 1, 3>{});
+  if (ncomp == 3 && h == 1 && v == 2) return f(ColorMode<1, 2, 3>{});
+  if (ncomp == 3 && h == 2 && v == 2) return f(ColorMode<2, 2, 3>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -317,33 +489,57 @@ extern "C" int pjt_cuda_dequant_occupancy(int wire_bytes, int g,
                          : dequant_occupancy<int8_t>(g, blocks);
 }
 
-// num_blocks = M * g independent 8x8 blocks; output int16, row-major.
+// num_blocks = M * g independent 8x8 blocks (16-byte aligned input and
+// output); output int16, row-major.
 extern "C" int pjt_cuda_idct_stage(const void* deq, void* out,
                                    long long num_blocks, void* stream) {
   if (num_blocks <= 0) return cudaErrorInvalidValue;
-  idct_stage_kernel<<<grid(num_blocks, IDCT_THREADS), IDCT_THREADS, 0,
+  cudaError_t ready;
+  idct_kernel(ready);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  idct_stage_kernel<<<grid(num_blocks, IDCT_BLOCKS), IDCT_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(deq), static_cast<int16_t*>(out),
       num_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Output uint8 [3, h*v, 64, M] (gray: h = v = 1, the luma in all three).
+// Blocks of the IDCT kernel one SM holds, and its static shared memory.
+extern "C" int pjt_cuda_idct_occupancy(int* blocks, int* smem) {
+  cudaError_t ready;
+  const void* kernel = idct_kernel(ready);
+  return occupancy(kernel, ready, IDCT_THREADS, blocks, smem);
+}
+
+// Output uint8 [3, h*v, 64, M] (gray: h = v = 1, the luma in all three);
+// the input 16-byte aligned.  8-byte stores when every output row is
+// 8-byte aligned, byte stores otherwise.
 extern "C" int pjt_cuda_color_stage(const void* spat, void* out,
                                     long long num_mcus, int h, int v,
                                     int ncomp, void* stream) {
   if (num_mcus <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ncomp == 1 && h == 1 && v == 1) {
-    return launch_color<1, 1, 1>(spat, out, num_mcus, st);
-  } else if (ncomp == 3 && h == 1 && v == 1) {
-    return launch_color<1, 1, 3>(spat, out, num_mcus, st);
-  } else if (ncomp == 3 && h == 2 && v == 1) {
-    return launch_color<2, 1, 3>(spat, out, num_mcus, st);
-  } else if (ncomp == 3 && h == 1 && v == 2) {
-    return launch_color<1, 2, 3>(spat, out, num_mcus, st);
-  } else if (ncomp == 3 && h == 2 && v == 2) {
-    return launch_color<2, 2, 3>(spat, out, num_mcus, st);
-  }
-  return cudaErrorInvalidValue;
+  const bool vec8 =
+      num_mcus % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  return color_mode(h, v, ncomp, [&](auto mode) {
+    using M = decltype(mode);
+    return vec8 ? launch_color<M::kH, M::kV, M::kNC, true>(spat, out,
+                                                           num_mcus, st)
+                : launch_color<M::kH, M::kV, M::kNC, false>(spat, out,
+                                                            num_mcus, st);
+  });
+}
+
+// The colour kernel a mode launches (vec8: the 8-byte store form): the
+// blocks one SM holds and its static shared memory.
+extern "C" int pjt_cuda_color_occupancy(int h, int v, int ncomp, int vec8,
+                                        int* blocks, int* smem) {
+  return color_mode(h, v, ncomp, [&](auto mode) {
+    using M = decltype(mode);
+    cudaError_t ready;
+    const void* kernel =
+        vec8 ? color_kernel<M::kH, M::kV, M::kNC, true>(ready)
+             : color_kernel<M::kH, M::kV, M::kNC, false>(ready);
+    return occupancy(kernel, ready, COLOR_THREADS, blocks, smem);
+  });
 }

@@ -143,7 +143,9 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_vlc, [ptr] * 5),
                     (lib.pjt_cuda_decode_occupancy, [i32] * 6 + [ptr, ptr]),
                     (lib.pjt_cuda_raster_occupancy, [i32] * 4 + [ptr, ptr]),
-                    (lib.pjt_cuda_dequant_occupancy, [i32] * 2 + [ptr])):
+                    (lib.pjt_cuda_dequant_occupancy, [i32] * 2 + [ptr]),
+                    (lib.pjt_cuda_idct_occupancy, [ptr, ptr]),
+                    (lib.pjt_cuda_color_occupancy, [i32] * 4 + [ptr, ptr])):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

@@ -1,6 +1,6 @@
 """A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``),
-the raster epilogue and the dequantize stage kernel between two checkouts,
-in one call on one card.
+the raster epilogue and the dequantize, IDCT and colour stage kernels
+between two checkouts, in one call on one card.
 
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent DIR
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --root DIR
@@ -23,7 +23,10 @@ ImageNet batch) on both wires; the raster epilogue
 (``EPILOGUE_GEOMETRIES``) on that batch (256 images of 24 x 32 4:2:0 MCUs,
 500x375) at scale 1 -> uint8, scale 2 -> bfloat16 normalised, and 224x224
 crops of the scale-1 batch -> bfloat16 normalised; the dequantize stage
-(``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires.
+(``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires;
+the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
+4:2:0, M=16,384 and 196,608, int16: the IDCT on the dequantize stage's
+output, the colour stage on the IDCT stage's, of the same seeded inputs.
 Inputs: Laplace(0, 6) coefficients, Q=16 quantizer rows (one of 16-bit
 values), uniform bytes for the epilogue, drawn from a fixed seed, rotated
 past twice the L2 (``utils/devbench.rotation_count``); each time is the
@@ -68,6 +71,9 @@ EPILOGUE_GEOMETRIES: Tuple[Tuple[str, int, Optional[str], Optional[tuple]],
 # (M, wire bytes) of the dequantize stage at 4:2:0
 DEQUANT_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
     (16384, 2), (16384, 1), (196608, 2), (196608, 1))
+# M of the IDCT and colour stages at 4:2:0, int16
+IDCT_GEOMETRIES: Tuple[int, ...] = (16384, 196608)
+COLOR_GEOMETRIES: Tuple[int, ...] = (16384, 196608)
 ORDER = ("parent", "change", "change", "parent")
 
 
@@ -84,6 +90,11 @@ def dequant_name(m: int, wire: int) -> str:
     return geometry_name("dequant", "4:2:0", m, wire)
 
 
+def stage_name(stage: str, m: int) -> str:
+    """``stage`` is "idct" or "color"; both take int16 at 4:2:0."""
+    return geometry_name(stage, "4:2:0", m, 2)
+
+
 def geometry_names() -> List[str]:
     """Every geometry ``side`` times, in its order."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
@@ -91,7 +102,17 @@ def geometry_names() -> List[str]:
     return ([geometry_name(k, S.mode_for(key).name, m, w)
              for k, key, m, w in GEOMETRIES]
             + [epilogue_name(label) for label, _, _, _ in EPILOGUE_GEOMETRIES]
-            + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES])
+            + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES]
+            + [stage_name(stage, m) for stage, m in stage_geometries()])
+
+
+def stage_geometries() -> List[Tuple[str, int]]:
+    """``(stage, M)`` of the IDCT and colour geometries in the order
+    ``side`` times them: by M, the IDCT before the colour stage."""
+    return [(stage, m)
+            for m in sorted(set(IDCT_GEOMETRIES) | set(COLOR_GEOMETRIES))
+            for stage, ms in (("idct", IDCT_GEOMETRIES),
+                              ("color", COLOR_GEOMETRIES)) if m in ms]
 
 
 def _inputs(torch, mode, m: int, wire: int, dev):
@@ -175,7 +196,8 @@ def side() -> dict:
 
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
-    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import dequantize_stage
+    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
+        color_stage, dequantize_stage, idct_stage)
     from pim_jpeg_decoder_tpu_torch.utils.devbench import seconds_per_launch
 
     dev = torch.device("cuda", 0)
@@ -209,6 +231,18 @@ def side() -> dict:
         bufs = _inputs(torch, mode, m, wire, dev)
         measure(dequant_name(m, wire),
                 lambda b: dequantize_stage(*b, mode), bufs)
+        del bufs
+        torch.cuda.empty_cache()
+    stages = {"idct": lambda d: idct_stage(d, mode),
+              "color": lambda sp: color_stage(sp, mode, raw=True)}
+    for stage, m in stage_geometries():
+        # The IDCT takes the dequantize stage's output, the colour stage
+        # the IDCT's, of the dequantize geometry's int16 inputs.
+        bufs = [dequantize_stage(*b, mode)
+                for b in _inputs(torch, mode, m, 2, dev)]
+        if stage == "color":
+            bufs = [idct_stage(d, mode) for d in bufs]
+        measure(stage_name(stage, m), stages[stage], bufs)
         del bufs
         torch.cuda.empty_cache()
     return {"card": torch.cuda.get_device_name(0), "results": results}

@@ -33,7 +33,7 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == 16 + 3 + 4
+    assert len(names) == len(set(names)) == 16 + 3 + 4 + 4
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
@@ -55,6 +55,20 @@ def test_epilogue_and_dequantize_geometries_are_named():
             assert crop[0] <= height // scale and crop[1] <= width // scale
 
 
+def test_idct_and_colour_geometries_are_named_and_ordered():
+    """Both stages at 4:2:0 int16, M=16,384 and 196,608, last and in the
+    order ``side`` times them: by M, the IDCT before the colour stage."""
+    names = A.geometry_names()
+    assert A.IDCT_GEOMETRIES == A.COLOR_GEOMETRIES == (16384, 196608)
+    assert names[16 + 3 + 4:] == [
+        "idct 4:2:0 M=16384 int16", "color 4:2:0 M=16384 int16",
+        "idct 4:2:0 M=196608 int16", "color 4:2:0 M=196608 int16"]
+    assert A.stage_geometries() == [("idct", 16384), ("color", 16384),
+                                    ("idct", 196608), ("color", 196608)]
+    assert A.stage_name("idct", 16384) == A.geometry_name(
+        "idct", "4:2:0", 16384, 2)
+
+
 def _named_runs(us_by_name, digests=None):
     """Four runs in ``A.ORDER`` of several geometries: name -> (parent
     pair, change pair)."""
@@ -72,7 +86,9 @@ def _named_runs(us_by_name, digests=None):
 @pytest.mark.parametrize("name", [
     "epilogue B=256 500x375 4:2:0 scale 1 -> uint8",
     "epilogue B=256 500x375 4:2:0 224x224 crops -> bfloat16",
-    "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8"])
+    "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8",
+    "idct 4:2:0 M=16384 int16", "idct 4:2:0 M=196608 int16",
+    "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16"])
 def test_verdict_on_the_new_geometries(name):
     """Each geometry gets its own verdict from its own band: the named one
     faster beyond it, a decode kernel beside it within its band."""

@@ -57,9 +57,10 @@ def _pad(x):
 
 
 def jax_stage(fn, *arrays, **kw):
-    """A JAX stage function on lane-tile-padded inputs, sliced to M."""
+    """A JAX stage function on lane-tile-padded inputs, sliced back to the
+    inputs' MCU count."""
     out = fn(*(_pad(a) for a in arrays), lane_tile=LANE_TILE, **kw)
-    return np.asarray(out)[:M]
+    return np.asarray(out)[:arrays[0].shape[0]]
 
 
 def _port_inputs(coeffs, qidx, qpool):
@@ -160,6 +161,48 @@ def test_color_stage_matches_jax(mode_key, source):
     assert got.shape == (M, mode.luma_slots, 64, 3) and got.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(raw, got.transpose(3, 1, 2, 0))
+
+
+RAGGED_MS = pytest.mark.parametrize("m", [1, 15, 17, 31, 33])
+GRAY_420 = pytest.mark.parametrize("mode_key", [(1, 1, 1), (2, 2, 3)],
+                                   ids=["gray", "4:2:0"])
+
+
+@RAGGED_MS
+@GRAY_420
+def test_idct_stage_ragged_m_matches_jax(mode_key, m):
+    """M around the CUDA kernel's 32 blocks a CUDA block (8 lanes a block),
+    on the dequantized extremes: the JAX IDCT stage, tolerance 0."""
+    mode = S.mode_for(mode_key)
+    coeffs, qidx, qpool = make_inputs(mode, np.int16, seed=40 + m)
+    deq = P.dequantize_stage(*_port_inputs(coeffs[:m].copy(),
+                                           qidx[:m].copy(), qpool), mode)
+    got = P.idct_stage(deq, mode)
+    assert tuple(got.shape) == (m, mode.g, 64)
+    np.testing.assert_array_equal(got.numpy(),
+                                  jax_stage(J.idct_stage, deq.numpy(),
+                                            mode=mode))
+
+
+@pytest.mark.parametrize("source", ["idct", "full_range"])
+@RAGGED_MS
+@GRAY_420
+def test_color_stage_ragged_m_matches_jax(mode_key, m, source):
+    """M around the CUDA kernel's 32-MCU tile, its runs of 8 MCUs and its
+    8-byte stores (15, 17, 31, 33 take the byte stores), on the IDCT's
+    output and on full-range int16 (the 32767 and -32768 blocks first):
+    the JAX colour stage, tolerance 0."""
+    mode = S.mode_for(mode_key)
+    if source == "idct":
+        coeffs, qidx, qpool = make_inputs(mode, np.int16, seed=60 + m)
+        spat = P.idct_stage(P.dequantize_stage(*_port_inputs(
+            coeffs[:m].copy(), qidx[:m].copy(), qpool), mode), mode).numpy()
+    else:
+        spat = full_range_samples(mode, seed=80 + m)[:m].copy()
+    want = jax_stage(J.color_stage, spat, mode=mode)
+    got = P.color_stage(torch.from_numpy(spat), mode).numpy()
+    assert got.shape == (m, mode.luma_slots, 64, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 @WIRES
