@@ -30,10 +30,12 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    kernels (``csrc/mxu_idct.cu``: mxu2pass with pieces 1 and 2, mxu64) at
    M=16,384 and 1,001 of int16 in [-2048, 2048) within ``MXU_TOLERANCE``
    of their float32 plain versions (TF32 operands; pieces 2 bit-exact);
-   the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0; the tiled
-   RGB and YCbCr kernels also in every mode, both wires, at M values
-   around their 32-MCU tile and 16-byte stores (``TILE_MS``: 1, 15, 17, 31,
-   33, 196,608) and on a ``coeffs[5:]`` slice of 1,027 MCUs, with
+   the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0; the tile
+   kernels (RGB, YCbCr, scaled RGB at scale 2/4/8, and in the colour modes
+   the stacked kernel, also equal to the RGB kernel) in every mode, both
+   wires, at M values around their 32-MCU tile and 16-byte stores
+   (``TILE_MS`` and ``EDGE_MS``: 1, 15, 17, 31, 32, 33, 65, 196,608) and on
+   a ``coeffs[5:]`` slice of 1,027 MCUs, with extreme blocks and
    out-of-range ``qidx`` entries (a zero quantizer row), tolerance 0; the
    IDCT and colour stage kernels where their tiles and store forms branch
    (``stage_tile_cases``: every mode, both wires, M of ``STAGE_MS`` and a
@@ -76,8 +78,12 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    (``nvcc.log``), dynamic shared memory, blocks an SM (occupancy
    calculator) and SASS instructions an MCU (``cuobjdump -sass``); the
    raster epilogue at the B=256 batch's two geometries and as 224x224
-   crops of it, each against its bound, and the registers, shared memory
-   and blocks an SM of the epilogue's and the dequantize stage's
+   crops of it, each against its bound; the scaled RGB kernel at 4:2:0
+   scale 2, 4 and 8 and the stacked kernel beside ``rgb_kernel`` at
+   M=16,384 and 196,608 on both wires, each against its bound (the scaled
+   kernel's counted in the least exact form, the matrix-form count
+   beside it); and the registers, shared memory and blocks an SM of the
+   epilogue's, the stage kernels', the scaled and the stacked kernel's
    instantiations.
 
 Any failure exits non-zero.  The last line is
@@ -180,11 +186,69 @@ COLOR_PIXEL_OPS = 21
 VLC_CYCLES_PER_SYMBOL = 2 * 23 + 6 * 4
 
 
+def reduced_pass_ops(n: int) -> int:
+    """Integer operations of the sums of one n-point reduced pass in its
+    least exact form, the even/odd split of the rounded basis
+    (``rgb_scaled_kernel``'s ``reduced_sums``): the n/2-point pass of the
+    even inputs, (n/2)^2 multiplies and n/2 (n/2 - 1) adds for the odd
+    sums, n adds to combine them; one multiply at n = 1."""
+    if n == 1:
+        return 1
+    h = n // 2
+    return reduced_pass_ops(h) + h * h + h * (h - 1) + n
+
+
 def reduced_idct_ops(ny: int, nx: int) -> int:
-    """Integer operations of one reduced (matrix) IDCT to ny x nx samples:
-    each output a sum of products over its pass (2n - 1), a descale (2),
-    then 2 clamps (decode_kernel._reduced_pass)."""
+    """Integer operations of one reduced IDCT to ny x nx samples in its
+    least exact form: each pass's sums (``reduced_pass_ops``) and a descale
+    (2) an output, then 2 clamps a sample."""
+    return (nx * (reduced_pass_ops(ny) + 2 * ny)
+            + ny * (reduced_pass_ops(nx) + 2 * nx) + 2 * ny * nx)
+
+
+def matrix_idct_ops(ny: int, nx: int) -> int:
+    """Integer operations of the same IDCT in the matrix form
+    (decode_kernel._reduced_pass): each output a sum of products over its
+    pass (2n - 1) and a descale (2), then 2 clamps a sample."""
     return nx * ny * (2 * ny + 1) + ny * nx * (2 * nx + 1) + 2 * ny * nx
+
+
+def scaled_mcu_counts(mode, scale: int, wire_bytes: int,
+                      matrix_form: bool = False):
+    """``(bytes, operations)`` an MCU of the scaled decode.  Bytes: the
+    32-byte sectors that hold the coefficients the reduced IDCTs read
+    (rows 0..n-1 of a luma block, 0..v*n-1 of a chroma block), qidx and the
+    output.  Operations: a dequantize (3) of each coefficient read, the
+    reduced IDCTs in their least exact form and BT.601 (21 a pixel; gray a
+    level shift).  ``matrix_form``: the count kept beside it, the whole
+    wire read, all 64 coefficients dequantized and the IDCTs in the matrix
+    form."""
+    n = 8 // scale
+    gy = mode.luma_slots
+    cy, cx = mode.v * n, mode.h * n
+    chroma = 2 if mode.ncomp == 3 else 0
+
+    def sectors(rows: int) -> int:
+        return -(-rows * 8 * wire_bytes // 32) * 32
+
+    if matrix_form:
+        wire = mode.g * 64 * wire_bytes
+        idct = gy * matrix_idct_ops(n, n) + chroma * matrix_idct_ops(cy, cx)
+        deq = mode.g * DEQUANT_BLOCK_OPS
+    else:
+        wire = gy * sectors(n) + chroma * sectors(cy)
+        idct = gy * reduced_idct_ops(n, n) + chroma * reduced_idct_ops(cy, cx)
+        deq = 3 * (gy * n * n + chroma * cy * cx)
+    colour = gy * n * n * (COLOR_PIXEL_OPS if chroma else 1)
+    return wire + 3 * gy * n * n + 4, idct + deq + colour
+
+
+def scaled_bound(mode, scale: int, m: int, wire_bytes: int, q: int = 16,
+                 matrix_form: bool = False):
+    """The bound of one scaled decode launch of ``m`` MCUs with a Q-row
+    pool (read once): ``scaled_mcu_counts`` times ``m``."""
+    nbytes, ops = scaled_mcu_counts(mode, scale, wire_bytes, matrix_form)
+    return bound(m * nbytes + q * mode.g * 64 * 4, m * ops)
 
 
 def bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS):
@@ -392,25 +456,41 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
 # M values around the full-scale kernels' tile (TILE_MCUS = 32, in
 # csrc/decode_tile.cuh) and their 16-byte store width.
 TILE_MS = (1, 15, 17, 31, 33, 196608)
+# M values of the scaled and stacked kernels' cases on the same tile: 1, a
+# tile less one, a tile, a tile and one, two tiles and one, a B=256 batch.
+EDGE_MS = (1, 31, 32, 33, 65, 196608)
 
 
 def tile_cases(torch, dev, rng, max_err):
-    """rgb_kernel and ycbcr_kernel against their plain versions, tolerance
-    0, in every mode and on both wires at the M values of ``TILE_MS``
-    (extreme blocks and out-of-range qidx entries -- Q and -1 -- in each),
-    and on a ``coeffs[5:]`` slice of 1,027 MCUs (input from MCU 5, an
-    output whose rows start off the 16-byte grid)."""
+    """The tile kernels against their plain versions, tolerance 0, in
+    every mode and on both wires at the M values of ``TILE_MS`` and
+    ``EDGE_MS`` (extreme blocks and out-of-range qidx entries -- Q and -1
+    -- in each), and on a ``coeffs[5:]`` slice of 1,027 MCUs (input from
+    MCU 5, an output whose rows start off the 16-byte grid): rgb_kernel,
+    ycbcr_kernel, rgb_scaled_kernel at scale 2, 4 and 8 and, in the colour
+    modes, rgb_stacked_kernel, which must also equal rgb_kernel."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         coeffs_to_device, decode_mcus, decode_mcus_reference,
         qpool_to_device)
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import KERNELS
+
+    def same(name, got, want, what) -> None:
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if got.shape != want.shape or err:
+            fail(f"{name} kernel != plain version: {what} (tile case) "
+                 f"max|err|={err}")
 
     cases = 0
+    stacked, stacked_plain = KERNELS["stacked"]
     for key in sorted(S.MODES):
         mode = S.mode_for(key)
         for wire in (np.int16, np.int8):
-            for m in TILE_MS + ("slice",):
+            for m in sorted(set(TILE_MS) | set(EDGE_MS)) + ["slice"]:
                 n = 1032 if m == "slice" else m
+                what = f"{mode.name} {np.dtype(wire).name} M={m}"
                 coeffs, qidx, qpool = synthetic_batch(mode, max(n, 3), wire,
                                                       rng, extreme=True)
                 qidx[n // 2] = qpool.shape[0]
@@ -420,23 +500,28 @@ def tile_cases(torch, dev, rng, max_err):
                 if m == "slice":
                     x, qi = x[5:], qi[5:]       # 1,027 MCUs from MCU 5
                 qp = qpool_to_device(qpool, dev)
-                for name in ("rgb", "ycbcr"):
-                    kw = dict(raw=True, ycbcr=name == "ycbcr")
-                    got = decode_mcus(x, qi, qp, mode, **kw)
-                    want = decode_mcus_reference(x, qi, qp, mode, **kw)
-                    torch.cuda.synchronize()
-                    err = int((got.int() - want.int()).abs().max())
-                    max_err[name] = max(max_err[name], err)
-                    if got.shape != want.shape or err:
-                        fail(f"{name} kernel != plain version: {mode.name} "
-                             f"{np.dtype(wire).name} M={m} (tile case) "
-                             f"max|err|={err}")
+                for name, scale in (("rgb", 1), ("ycbcr", 1),
+                                    ("rgb_scaled", 2), ("rgb_scaled", 4),
+                                    ("rgb_scaled", 8)):
+                    kw = dict(raw=True, ycbcr=name == "ycbcr", scale=scale)
+                    same(name, decode_mcus(x, qi, qp, mode, **kw),
+                         decode_mcus_reference(x, qi, qp, mode, **kw),
+                         f"{what} scale {scale}")
                     cases += 1
+                if mode.ncomp == 3:
+                    got = stacked(x, qi, qp, mode)
+                    same("stacked", got, stacked_plain(x, qi, qp, mode), what)
+                    if not torch.equal(got, decode_mcus(x, qi, qp, mode,
+                                                        raw=True)):
+                        fail(f"stacked kernel != rgb kernel: {what}")
+                    cases += 2
                 del x, qi
     torch.cuda.empty_cache()
-    return cases, (f"rgb/ycbcr x 5 modes x i16/i8 x M={list(TILE_MS)} and "
-                   f"a coeffs[5:] slice of 1,027 MCUs, extreme blocks and "
-                   f"out-of-range qidx (Q, -1: a zero quantizer row)")
+    return cases, (f"rgb/ycbcr/scaled 2,4,8 x 5 modes and stacked (also == "
+                   f"rgb kernel) x 4 colour modes x i16/i8 x M="
+                   f"{sorted(set(TILE_MS) | set(EDGE_MS))} and a coeffs[5:] "
+                   f"slice of 1,027 MCUs, extreme blocks and out-of-range "
+                   f"qidx (Q, -1: a zero quantizer row)")
 
 
 def mxu_cases(torch, dev, rng, max_err) -> str:
@@ -1406,6 +1491,53 @@ def tile_times(torch, dev, card: str) -> dict:
     return medians
 
 
+def scaled_stacked_times(torch, dev, card: str) -> None:
+    """rgb_scaled_kernel at 4:2:0 scale 2, 4 and 8, and rgb_stacked_kernel
+    beside rgb_kernel on the same inputs, at M=16,384 and 196,608 on both
+    wires (Laplace(0, 6) coefficients, Q=16, rotated past the L2); each
+    against its bound and its share (the scaled kernel's recounted bound,
+    the matrix-form count beside it)."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, qpool_to_device)
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import rgb_stacked
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
+
+    rng = np.random.default_rng(SEED + 6)
+    mode = S.mode_for((2, 2, 3))
+    for m in (16384, 196608):
+        for wire in (np.int8, np.int16):
+            wb = np.dtype(wire).itemsize
+            bufs = []
+            for _ in range(max(2, rotation_count(m * mode.g * 64 * wb, dev))):
+                c, qi, qp = synthetic_batch(mode, m, wire, rng, extreme=False)
+                bufs.append((coeffs_to_device(c, dev),
+                             torch.from_numpy(qi).to(dev),
+                             qpool_to_device(qp, dev)))
+            what = f"4:2:0 M={m} {np.dtype(wire).name}"
+            for scale in (2, 4, 8):
+                k = time_band(lambda b: decode_mcus(
+                    *b, mode, raw=True, scale=scale), bufs)
+                b = scaled_bound(mode, scale, m, wb)
+                old = scaled_bound(mode, scale, m, wb, matrix_form=True)
+                print(f"[4 times] rgb_scaled_kernel {what} scale {scale}: "
+                      f"{us_band(k)}/launch; {bound_note(b)}, "
+                      f"{100 * b[0] / k[0]:.1f}% of the bound (matrix-form "
+                      f"{bound_note(old)}, {100 * old[0] / k[0]:.1f}%); 30 "
+                      f"launches over {len(bufs)} rotating inputs | {card}",
+                      flush=True)
+            st = time_band(lambda b: rgb_stacked(*b, mode), bufs)
+            rgb = time_band(lambda b: decode_mcus(*b, mode, raw=True), bufs)
+            b = decode_bound(mode, m, wb, "rgb")
+            print(f"[4 times] rgb_stacked_kernel {what}: {us_band(st)}/launch,"
+                  f" {100 * b[0] / st[0]:.1f}% of the {bound_note(b)}; "
+                  f"rgb_kernel on the same inputs {us_band(rgb)}, "
+                  f"{100 * b[0] / rgb[0]:.1f}%: stacked/rgb "
+                  f"{st[0] / rgb[0]:.3f} | {card}", flush=True)
+            del bufs
+            torch.cuda.empty_cache()
+
+
 # Opcode roots of the integer-ALU pipe, the FMA pipe (IMAD) and memory.
 SASS_ALU = ("IADD3", "LOP3", "SHF", "VIMNMX", "IMNMX", "SEL", "LEA", "PRMT",
             "ISETP", "VIADD", "IABS", "SGXT")
@@ -1440,7 +1572,8 @@ def tile_resources(torch, card: str, medians: dict) -> None:
     MCU (every loop is unrolled, so a warp runs each instruction at most
     once a tile: TILE_THREADS / 32 warps over TILE_MCUS MCUs), and the
     time those would take at M=16,384 issued at one warp instruction a
-    clock on each of an SM's 4 schedulers at the maximum SM clock."""
+    clock on each of an SM's 4 schedulers at the maximum SM clock; the
+    same SASS accounting of the scaled kernel at 4:2:0 scale 2."""
     from pim_jpeg_decoder_tpu_torch.ops import _build
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
@@ -1485,18 +1618,44 @@ def tile_resources(torch, card: str, medians: dict) -> None:
               f"schedulers, {clock / 1e9:.3f} GHz)"
               + (f" vs {measured * 1e3:.2f} us measured" if measured
                  else "") + f" | {card}", flush=True)
+    # The scaled kernel at 4:2:0 scale 2 (16-byte stores), likewise: every
+    # round is unrolled and each warp runs it, so a warp runs each
+    # instruction at most once a tile.
+    scaled = re.compile(r"rgb_scaled_kernelI([as])Li2ELi2ELi3ELi4ELb1E")
+    for mangled, ops in sorted(sass.items()):
+        found = scaled.search(mangled)
+        if not found:
+            continue
+        total = sum(ops.values())
+        per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
+        issue = [per_mcu * m / (4 * sms * clock) * 1e6 for m in (16384,
+                                                                 196608)]
+        print(f"[4 times] rgb_scaled_kernel 4:2:0 scale 2 "
+              f"int{8 if found.group(1) == 'a' else 16} (16-byte stores): "
+              f"SASS {total} instructions ({sum(ops[o] for o in SASS_ALU)} "
+              f"integer ALU, {ops['IMAD']} IMAD, "
+              f"{sum(ops[o] for o in SASS_MEM)} memory), {per_mcu:.1f} warp "
+              f"instructions an MCU: {issue[0]:.2f} us of issue at M=16384, "
+              f"{issue[1]:.2f} us at M=196608 | {card}", flush=True)
 
 
 def redesign_resources(torch, card: str) -> None:
     """Registers (ptxas, ``nvcc.log``) of every instantiation of the banded
-    raster epilogue and of the dequantize, IDCT and colour stage kernels,
-    with the shared memory and blocks an SM holds (the occupancy
-    calculator) of the 4:2:0 epilogue and dequantize ones that phase 4
-    times and of every IDCT and colour one (the IDCT kernel has one
-    instantiation; the colour kernel one a mode and store form)."""
+    raster epilogue, the dequantize, IDCT and colour stage kernels, the
+    scaled decode kernel and the stacked kernel, with the shared memory and
+    blocks an SM holds (the occupancy calculator) of the 4:2:0 epilogue and
+    dequantize ones that phase 4 times and of every IDCT, colour, scaled
+    and stacked one (the IDCT kernel has one instantiation; the colour
+    kernel one a mode and store form; the scaled kernel one a mode, wire,
+    scale and store form, the stacked kernel one a colour mode, wire and
+    store form).  Their layouts' bank and alignment claims are
+    static_asserts in the CUDA source, so a build that passes holds them."""
     from pim_jpeg_decoder_tpu_torch.ops import _build
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import raster_occupancy
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        raster_occupancy, tile_occupancy)
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import (
+        stacked_occupancy)
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_occupancy, dequant_occupancy, idct_occupancy)
 
@@ -1510,8 +1669,12 @@ def redesign_resources(torch, card: str) -> None:
                      r"Li(\d+)ELi(\d+)E")
     deq = re.compile(r"dequant_stage_kernelI([as])Li(\d+)E")
     color = re.compile(r"color_stage_kernelILi(\d)ELi(\d)ELi(\d)ELb([01])E")
+    scaled = re.compile(r"rgb_scaled_kernelI([as])Li(\d)ELi(\d)ELi(\d)ELi(\d)E"
+                        r"Lb([01])E")
+    stacked = re.compile(r"rgb_stacked_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
     mode = S.mode_for((2, 2, 3))
-    found = {"epilogue": [], "dequant": [], "idct": [], "color": []}
+    found = {"epilogue": [], "dequant": [], "idct": [], "color": [],
+             "scaled": [], "stacked": []}
     for mangled, regs in entries:
         hit = epi.search(mangled)
         if hit:
@@ -1549,12 +1712,34 @@ def redesign_resources(torch, card: str) -> None:
                   f"({'8-byte' if vec8 else 'byte'} stores): {regs} "
                   f"registers, {smem} B static shared memory, {blocks} "
                   f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-    want = {"epilogue": 32, "dequant": 8, "idct": 1, "color": 10}
+        hit = scaled.search(mangled) or stacked.search(mangled)
+        if hit:
+            kind = "scaled" if hit.re is scaled else "stacked"
+            wire = 1 if hit.group(1) == "a" else 2
+            h, v = int(hit.group(2)), int(hit.group(3))
+            vec16 = hit.group(hit.re.groups) == "1"
+            if kind == "scaled":
+                m_key = (h, v, int(hit.group(4)))
+                scale = 8 // int(hit.group(5))
+                blocks, smem = tile_occupancy(wire, S.mode_for(m_key), False,
+                                              vec16, scale)
+                label = (f"rgb_scaled_kernel {S.mode_for(m_key).name} "
+                         f"scale {scale}")
+            else:
+                m_key = (h, v, 3)
+                blocks, smem = stacked_occupancy(wire, S.mode_for(m_key),
+                                                 vec16)
+                label = f"rgb_stacked_kernel {S.mode_for(m_key).name}"
+            found[kind].append((int(regs), blocks))
+            print(f"[4 times] {label} int{8 * wire} "
+                  f"({'16-byte' if vec16 else 'byte'} stores): {regs} "
+                  f"registers, {smem} B dynamic shared memory, {blocks} "
+                  f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
+    want = {"epilogue": 32, "dequant": 8, "idct": 1, "color": 10,
+            "scaled": 60, "stacked": 16}
     if {k: len(v) for k, v in found.items()} != want:
-        fail(f"nvcc.log names {len(found['epilogue'])} epilogue, "
-             f"{len(found['dequant'])} dequantize, {len(found['idct'])} IDCT "
-             f"and {len(found['color'])} colour instantiations, expected "
-             f"32, 8, 1 and 10")
+        names = ", ".join(f"{len(v)} {k}" for k, v in found.items())
+        fail(f"nvcc.log names {names} instantiations, expected {want}")
     print(f"[4 times] raster_epilogue_kernel: 32 instantiations (4 output "
           f"types x n 8/4/2/1 x h 1/2), {min(found['epilogue'])}-"
           f"{max(found['epilogue'])} registers; dequant_stage_kernel: 8 "
@@ -1563,6 +1748,15 @@ def redesign_resources(torch, card: str) -> None:
           f"{found['idct'][0]} registers; color_stage_kernel: 10 (5 modes x "
           f"8-byte/byte stores), {min(found['color'])}-"
           f"{max(found['color'])} registers | {card}", flush=True)
+    for kind, count in (("scaled", "60 (5 modes x 2 wires x scale 2/4/8 x "
+                                   "16-byte/byte stores)"),
+                        ("stacked", "16 (4 colour modes x 2 wires x "
+                                    "16-byte/byte stores)")):
+        regs = [r for r, _ in found[kind]]
+        blocks = [b for _, b in found[kind]]
+        print(f"[4 times] rgb_{kind}_kernel: {count}, {min(regs)}-"
+              f"{max(regs)} registers, {min(blocks)}-{max(blocks)} "
+              f"blocks/SM | {card}", flush=True)
 
 
 def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
@@ -1638,12 +1832,6 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
     bufs, st = batch_inputs(torch, dev, blobs, rng)
     mode, m_full = st.mode, bufs[0][0].shape[0]
     batch = len(st.headers)
-    # Scale 2 of 4:2:0: each luma block a 4x4 reduced IDCT, each chroma
-    # block an 8x8 one (not upsampled); 16 RGB pixels a luma slot.
-    scaled_mcu_ops = (mode.luma_slots * reduced_idct_ops(4, 4)
-                      + 2 * reduced_idct_ops(8, 8)
-                      + mode.g * DEQUANT_BLOCK_OPS
-                      + mode.luma_slots * 16 * COLOR_PIXEL_OPS)
     for m in (m_full, 16384):
         sub = [(c[:m], q[:m], qp) for c, q, qp in bufs]
         mb = sub[0][0].numel() / 1e6 + 3 * mode.luma_slots * 16 * m / 1e6
@@ -1651,14 +1839,17 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
                       sub)
         p = time_band(lambda b: decode_mcus_reference(
             *b, mode, raw=True, scale=2), sub, runs=10)
-        b = bound(mb * 1e6 + (m + sub[0][2].numel()) * 4, m * scaled_mcu_ops)
+        q = sub[0][2].shape[0]
+        b = scaled_bound(mode, 2, m, 1, q)
+        old = scaled_bound(mode, 2, m, 1, q, matrix_form=True)
         if m == m_full:
             times["rgb_scaled"] = timing(k, p, b)
         print(f"[4 times] rgb_scaled kernel 4:2:0 scale 2 M={m} int8 wire: "
-              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
-              f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound); "
-              f"plain PyTorch {us_band(p)}; 30/10 "
-              f"launches over 10 rotating inputs | {card}", flush=True)
+              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB "
+              f"wire + out; {bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the "
+              f"bound; matrix-form {bound_note(old)}, "
+              f"{100 * old[0] / k[0]:.1f}%); plain PyTorch {us_band(p)}; "
+              f"30/10 launches over 10 rotating inputs | {card}", flush=True)
     h0 = st.headers[0]
     for scale, dtype_name, crop in ((2, "bfloat16", None), (1, None, None),
                                     (1, "bfloat16", (224, 224))):
@@ -1924,6 +2115,7 @@ def main() -> int:
                           times)
         phase_ab_times(torch, dev, card, times)
         tile_resources(torch, card, tile_times(torch, dev, card))
+        scaled_stacked_times(torch, dev, card)
         redesign_resources(torch, card)
         kernel_bounds(times, card)
 

@@ -70,18 +70,55 @@
 // quantizer loads at 32 warps an SM).  At M=196,608 the waves overlap:
 // 142 and 108 us, 52% and 42% of the bounds.
 
+//
+// rgb_scaled_kernel (the batch path's scale-2 decode, the CLI's --scale)
+// is tiled the same way; its first form ran a thread per whole block (a
+// chroma thread's 8x8 matrix IDCT, 2,304 operations, was the critical
+// path), dequantized all 64 coefficients though the reduced IDCT reads
+// NY x NX of them, and stored bytes.  The redesign:
+//   - the tile copies only the 16-byte chunks that hold rows 0..NY-1 of
+//     each block (at scale 2 half of a luma block; 32-byte sectors are
+//     what the device reads) with cp.async, MCUs an odd number of chunks
+//     apart (ScaledLayout), and stages each MCU's quantizer row;
+//   - every block is split over max(NY, NX) lanes (Reduced): lane u runs
+//     pass 1 down frequency column u, dequantizing only the NY
+//     coefficients it reads, an int32 transpose (pass 1 wraps on extreme
+//     blocks) padded so both directions are conflict-free, then lane r
+//     runs pass 2 along spatial row r.  A warp takes 32 / lanes blocks of
+//     one slot a round; every warp runs its luma rounds, then its chroma
+//     rounds, so no warp is all chroma (4:2:0 scale 2: 2 + 2 rounds);
+//   - both passes run the rounded basis through its exact even/odd split
+//     (reduced_sums): 22 multiplies for 8 points, bit-identical in
+//     uint32_t wrap-around;
+//   - samples park in shared memory and rows are stored like rgb_kernel's
+//     (8 bytes of a row a lane in colour, 16 in gray; byte stores when M %
+//     16 != 0).
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4; PERF.md): 18-40
+// registers, 1.7-39.6 KB of shared memory, 5-8 blocks an SM (4:2:0 scale
+// 2: 40 registers, 31,360 B int8 [39,552 B int16], 6 [5] blocks).  4:2:0
+// scale 2 int8 on a B=256 batch (M=196,608): 65.4 us, was 97.4-98.3; at
+// M=16,384: 12.1 us, was 14.6-14.9.  What bounds it is issue and latency,
+// not bytes: 234.5 warp instructions an MCU (SASS), 44.1 us of issue at
+// M=196,608 against a 30.1 us bound (operations, even/odd form) and 26.5
+// us of bytes (the sectors read); at M=16,384 one wave of 512 tiles (3.9
+// an SM) loads, decodes and stores one phase after another.  Timed on the
+// card against this form and not kept: 16-MCU tiles, 512-thread tiles, two
+// tiles a block (the second's copy in flight during the first's decode),
+// two rounds a step, a zero quantizer row in place of the mask: none
+// faster at M=16,384, each slower or level at M=196,608.
 // Shared helpers (constants, the Loeffler pass, dequantize, BT.601, the
 // chroma index and the byte store loop) live in decode_common.cuh, with
-// the reasons for their wrap-around uint32_t arithmetic; rgb_scaled_kernel
-// keeps the per-thread form (a thread per 8x8 block, TILE = 64 MCUs).
+// the reasons for their wrap-around uint32_t arithmetic.
+
+#include <type_traits>
 
 #include "decode_common.cuh"
 #include "decode_tile.cuh"
 
 namespace {
 
-// Scaled decode (ops/specs.py "Reduced (scaled) IDCT"): a matrix IDCT of
-// the top-left NY x NX frequencies, both passes by the rounded basis of
+// Scaled decode (ops/specs.py "Reduced (scaled) IDCT"): an IDCT of the
+// top-left NY x NX frequencies, both passes by the rounded basis of
 // specs.reduced_idct_matrix, also for NY or NX == 8 (not the Loeffler
 // butterfly), descaled by CONST_BITS -/+ PASS1_BITS (no "+3").
 // basis<N>(k, u) = round(0.5 * C_u * cos((2k + 1) u pi / 2N) * 2^13).
@@ -116,52 +153,308 @@ __device__ __forceinline__ uint32_t basis(int k, int u) {
   return static_cast<uint32_t>(c);
 }
 
+// The sums o[k] = sum_u basis<N>(k, u) * x[u] of one N-point reduced pass,
+// by the exact even/odd split of the rounded basis: basis[N-1-k][u] ==
+// (-1)^u basis[k][u], so with E[k] the sum over even u and O[k] over odd
+// u, o[k] = E[k] + O[k] and o[N-1-k] = E[k] - O[k]; and basis<N>(k, 2j) ==
+// basis<N/2>(k, j), so E is the N/2-point pass of the even inputs
+// (tests/test_torch_scaled.py holds both identities against the spec).
+// In wrap-around uint32_t arithmetic this is the matrix sum itself, bit for
+// bit; 8 points take 22 multiplies instead of 64.
+template <int N>
+__device__ __forceinline__ void reduced_sums(const uint32_t (&x)[N],
+                                             uint32_t (&o)[N]) {
+  if constexpr (N == 1) {
+    o[0] = x[0] * basis<1>(0, 0);
+  } else {
+    constexpr int HALF = N / 2;
+    uint32_t xe[HALF], e[HALF];
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) xe[j] = x[2 * j];
+    reduced_sums<HALF>(xe, e);
+#pragma unroll
+    for (int k = 0; k < HALF; ++k) {
+      uint32_t odd = x[1] * basis<N>(k, 1);
+#pragma unroll
+      for (int j = 1; j < HALF; ++j) {
+        odd += x[2 * j + 1] * basis<N>(k, 2 * j + 1);
+      }
+      o[k] = e[k] + odd;
+      o[N - 1 - k] = e[k] - odd;
+    }
+  }
+}
+
 // One N-point reduced pass (decode_kernel.py:_reduced_pass): o[k] =
 // descale(sum_u basis[k][u] * x[u], SHIFT), in wrap-around arithmetic.
 template <int N, int SHIFT>
 __device__ __forceinline__ void reduced_pass(const uint32_t (&x)[N],
                                              int32_t (&o)[N]) {
+  uint32_t acc[N];
+  reduced_sums<N>(x, acc);
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uint32_t acc = x[0] * basis<N>(k, 0);
+  for (int k = 0; k < N; ++k) o[k] = sra(acc[k] + (1u << (SHIFT - 1)), SHIFT);
+}
+
+// One reduced IDCT of NY x NX samples on kLanes = max(NY, NX) lanes (pass 1:
+// lane u down frequency column u; pass 2: lane r along spatial row r),
+// through an int32 transpose of NY rows of kRow words.  Rows of 4 or 8
+// words are padded to 8 words, or to 12 on 8 lanes, so that the row reads
+// of pass 2 (16-byte loads, 8 lanes a phase) hit distinct banks; kBlock is
+// the first size >= NY * kRow with kBlock % 32 == kLanes, so the kPerWarp
+// blocks of a warp start kLanes banks apart and the column writes of pass
+// 1 hit distinct banks.  Conflict-free both ways for every kind with NX >=
+// 4 (all of scale 2); the 2-wide kinds of scale 4 and 8 read 2-way.
+// Kind's static_asserts hold every instantiated kind to these claims.
+template <int NY, int NX>
+struct Reduced {
+  static constexpr int kLanes = NY > NX ? NY : NX;
+  static constexpr int kPerWarp = 32 / kLanes;
+  static constexpr int kRow = NX >= 4 ? (kLanes == 8 ? 12 : 8) : NX;
+  static constexpr int kBlock = NY * kRow + (kLanes - NY * kRow % 32 + 32) % 32;
+  static constexpr int kWarpWords = kPerWarp * kBlock;
+  static constexpr int kWidth = NX < 4 ? NX : 4;   // words a row load
+  static_assert(kLanes * kPerWarp == 32, "a warp's blocks fill its lanes");
+  static_assert(kRow % kWidth == 0 && kBlock % kWidth == 0,
+                "row loads aligned");
+
+  // Pass-1 column writes (lane j * kLanes + u: the word of row r, column
+  // u of the warp's block j) and, for rows of 4 or 8 words, pass-2 row
+  // reads (lane j * kLanes + r: 4 words from column h of row r) without
+  // bank conflicts.
+  static constexpr int word(int lane, int r, int u) {
+    return lane / kLanes * kBlock + r * kRow + u;
+  }
+  static constexpr bool conflict_free() {
+    for (int r = 0; r < NY; ++r) {
+      int w[32] = {};
+      for (int l = 0; l < 32; ++l)
+        w[l] = l % kLanes < NX ? word(l, r, l % kLanes) : -1;
+      if (!phase_conflict_free(w, 32, 1)) return false;
+    }
+    for (int h = 0; NX >= 4 && h < NX; h += 4) {
+      int w[32] = {};
+      for (int l = 0; l < 32; ++l)
+        w[l] = l % kLanes < NY ? word(l, l % kLanes, h) : -1;
+      for (int p = 0; p < 32; p += 8)
+        if (!phase_conflict_free(w + p, 8, 4)) return false;
+    }
+    return true;
+  }
+};
+
+// The dynamic shared memory of a scaled tile (TILE_MCUS MCUs), every part
+// 16-byte aligned: each warp's transpose scratch (the larger of its luma
+// and chroma kind), the rows the reduced IDCTs read ([MCU][slot][row][8]
+// of T: the first kLumaChunks / kChromaChunks 16-byte chunks of each block
+// on the wire, MCUs an odd number of chunks apart so that the column reads
+// of pass 1 spread over the banks), the samples ([row][MCU] int8: GY * NN
+// luma rows, slot-major, pixel px * N + py; then each chroma block's CY *
+// CX, col * CY + row) and each MCU's quantizer row (-1: qidx out of
+// range).
+template <typename T, int H, int V, int NC, int N>
+struct ScaledLayout {
+  static constexpr int GY = H * V;
+  static constexpr int G = NC == 1 ? 1 : GY + 2;
+  static constexpr int NN = N * N;
+  static constexpr int CY = V * N, CX = H * N;   // chroma rows, columns
+  using Luma = Reduced<N, N>;
+  using Chroma = Reduced<CY, CX>;
+  static constexpr int kBytesT = static_cast<int>(sizeof(T));
+  static constexpr int kLumaChunks = (N * 8 * kBytesT + VEC - 1) / VEC;
+  static constexpr int kChromaChunks = (CY * 8 * kBytesT + VEC - 1) / VEC;
+  static constexpr int kMcuChunks =
+      GY * kLumaChunks + (G - GY) * kChromaChunks;
+  static constexpr int kMcuStride = (kMcuChunks | 1) * VEC;
+  static constexpr int kChromaRow0 = GY * NN;
+  static constexpr int kSampleRows = NC == 1 ? GY * NN : 3 * GY * NN;
+  static constexpr int kWarpWords =
+      ((NC == 1 || Luma::kWarpWords >= Chroma::kWarpWords
+            ? Luma::kWarpWords
+            : Chroma::kWarpWords) + 3) & ~3;
+  static constexpr int kXpose = 0;
+  static constexpr int kCoeffs = kXpose + TILE_WARPS * kWarpWords * 4;
+  static constexpr int kSamples = kCoeffs + TILE_MCUS * kMcuStride;
+  static constexpr int kQrows = kSamples + kSampleRows * SAMPLE_ROW;
+  static constexpr int kBytes = kQrows + TILE_MCUS * 4;
+  static_assert(kCoeffs % VEC == 0 && kSamples % VEC == 0 &&
+                    kQrows % VEC == 0,
+                "every part 16-byte aligned");
+
+  // First chunk of block s in an MCU's copy.
+  __device__ static int block_chunk(int s) {
+    return s < GY ? s * kLumaChunks
+                  : GY * kLumaChunks + (s - GY) * kChromaChunks;
+  }
+};
+
+// Copy the chunks of ScaledLayout (rows 0..N-1 of each luma block, 0..CY-1
+// of each chroma block) of the tile's MCUs into shared memory with 16-byte
+// asynchronous copies, lane i on chunk i; meanwhile stage each MCU's
+// quantizer row.  Returns after both have landed.
+template <typename L, typename T>
+__device__ __forceinline__ void load_scaled_tile(
+    const T* __restrict__ coeffs, const int32_t* __restrict__ qidx, int num_q,
+    long long m0, int valid, uint8_t* smem) {
+  constexpr int kRounds =
+      (TILE_MCUS * L::kMcuChunks + TILE_THREADS - 1) / TILE_THREADS;
+  constexpr int kBlockBytes = 64 * L::kBytesT;
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(coeffs) +
+                       static_cast<size_t>(m0) * L::G * kBlockBytes;
 #pragma unroll
-    for (int u = 1; u < N; ++u) acc += x[u] * basis<N>(k, u);
-    o[k] = sra(acc + (1u << (SHIFT - 1)), SHIFT);
+  for (int k = 0; k < kRounds; ++k) {
+    const int c = k * TILE_THREADS + threadIdx.x;
+    if (c < valid * L::kMcuChunks) {
+      const int mj = c / L::kMcuChunks, chunk = c % L::kMcuChunks;
+      const int luma = L::GY * L::kLumaChunks;
+      const int s = chunk < luma ? chunk / L::kLumaChunks
+                                 : L::GY + (chunk - luma) / L::kChromaChunks;
+      __pipeline_memcpy_async(
+          smem + L::kCoeffs + mj * L::kMcuStride + chunk * VEC,
+          src + (static_cast<size_t>(mj) * L::G + s) * kBlockBytes +
+              (chunk - L::block_chunk(s)) * VEC,
+          VEC);
+    }
+  }
+  __pipeline_commit();
+  if (threadIdx.x < TILE_MCUS) {
+    int row = -1;
+    if (static_cast<int>(threadIdx.x) < valid) {
+      const int qi = __ldg(qidx + m0 + threadIdx.x);
+      if (static_cast<unsigned>(qi) < static_cast<unsigned>(num_q)) row = qi;
+    }
+    reinterpret_cast<int32_t*>(smem + L::kQrows)[threadIdx.x] = row;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// NX int32 words of a transpose row (16-byte aligned for NX >= 4, 8-byte
+// for NX == 2).
+template <int NX>
+__device__ __forceinline__ void load_row(const int32_t* p, uint32_t (&x)[NX]) {
+  if constexpr (NX == 8) {
+    const int4 lo = *reinterpret_cast<const int4*>(p);
+    const int4 hi = *reinterpret_cast<const int4*>(p + 4);
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  } else if constexpr (NX == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (NX == 2) {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = p[0];
   }
 }
 
-// Dequantize + reduced (NY x NX)-point IDCT + clamp of block (m, s):
-// spat[px*NY + py] (decode_kernel.py:_reduced_idct_lists + _assemble_pm).
-template <typename T, int G, int NY, int NX>
-__device__ __forceinline__ void decode_block_reduced(
-    const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
-    const int32_t* __restrict__ qpool, int num_q, long long m, int s,
-    int32_t (&spat)[NY * NX]) {
-  uint32_t deq[64];
-  dequant_block<T, G>(coeffs, qidx, qpool, num_q, m, s, deq);
-  // Pass 1 down each of the NX frequency columns: w[py][u].
-  int32_t w[NY][NX];
-#pragma unroll
-  for (int u = 0; u < NX; ++u) {
-    uint32_t in[NY];
-    int32_t out[NY];
-#pragma unroll
-    for (int v = 0; v < NY; ++v) in[v] = deq[v * 8 + u];
-    reduced_pass<NY, CONST_BITS - PASS1_BITS>(in, out);
-#pragma unroll
-    for (int r = 0; r < NY; ++r) w[r][u] = out[r];
+// The NY x NX reduced IDCTs of slots S0 .. S0+NSLOTS-1 of every MCU of the
+// tile ("a kind": the luma blocks, or the chroma blocks).  Warp-round wr
+// takes Reduced::kPerWarp blocks of one slot and consecutive MCUs (block bi
+// = wr * kPerWarp + j on lanes j * kLanes ..); warp w takes the
+// warp-rounds wr = w - FIRST_WARP (mod TILE_WARPS), so that a kind that
+// ends part-way through the warps hands the next kind's first rounds to
+// the idle ones.  Round k of a warp: load_q fetches lane i's quantizers of
+// column u = i (from the pool, which stays in the L2; an out-of-range row
+// reads row 0 masked to 0) a round ahead; run dequantizes that column and
+// runs pass 1 down it on lanes i < NX, and after __syncwarp pass 2 along
+// row r = i on lanes i < NY.  Blocks past the ragged end decode whatever
+// the tile holds there and are never stored.
+template <typename L, typename T, int NY, int NX, int S0, int NSLOTS,
+          int FIRST_WARP>
+struct Kind {
+  using R = Reduced<NY, NX>;
+  static_assert(R::conflict_free(), "transpose bank conflicts");
+  static constexpr int kWarpRounds = TILE_MCUS * NSLOTS / R::kPerWarp;
+  static constexpr int kRounds = (kWarpRounds + TILE_WARPS - 1) / TILE_WARPS;
+
+  // Whether this warp has a round k, and that round's block of lane j.
+  __device__ static bool block(int k, int& mj, int& s) {
+    const int warp = threadIdx.x >> 5;
+    const int wr =
+        k * TILE_WARPS + (warp + TILE_WARPS - FIRST_WARP) % TILE_WARPS;
+    const int bi = wr * R::kPerWarp + (threadIdx.x & 31) / R::kLanes;
+    mj = bi % TILE_MCUS;
+    s = S0 + bi / TILE_MCUS;
+    return wr < kWarpRounds;                       // the same for the warp
   }
-  // Pass 2 along each spatial row.
+
+  __device__ static void load_q(int k, const int32_t* __restrict__ qpool,
+                                const uint8_t* smem, uint32_t (&q)[8]) {
+    int mj, s;
+    const int i = threadIdx.x % R::kLanes;
+    if (!block(k, mj, s) || i >= NX) return;
+    const int row = reinterpret_cast<const int32_t*>(smem + L::kQrows)[mj];
+    const uint32_t keep = row < 0 ? 0u : ~0u;
+    const int32_t* src =
+        qpool + (static_cast<size_t>(row < 0 ? 0 : row) * L::G + s) * 64 + i;
 #pragma unroll
-  for (int r = 0; r < NY; ++r) {
-    uint32_t in[NX];
-    int32_t out[NX];
+    for (int v = 0; v < NY; ++v) {
+      q[v] = static_cast<uint32_t>(__ldg(src + 8 * v)) & keep;
+    }
+  }
+
+  __device__ static void run(int k, const uint32_t (&q)[8], uint8_t* smem) {
+    int mj, s;
+    if (!block(k, mj, s)) return;
+    const int lane = threadIdx.x & 31;
+    const int i = lane % R::kLanes;
+    int32_t* xp = reinterpret_cast<int32_t*>(smem + L::kXpose) +
+                  (threadIdx.x >> 5) * L::kWarpWords +
+                  lane / R::kLanes * R::kBlock;
+    if (i < NX) {
+      const T* c = reinterpret_cast<const T*>(
+                       smem + L::kCoeffs + mj * L::kMcuStride +
+                       L::block_chunk(s) * VEC) + i;
+      uint32_t x[NY];
 #pragma unroll
-    for (int u = 0; u < NX; ++u) in[u] = static_cast<uint32_t>(w[r][u]);
-    reduced_pass<NX, CONST_BITS + PASS1_BITS>(in, out);
+      for (int v = 0; v < NY; ++v) x[v] = dequant(c[8 * v], q[v]);
+      int32_t o[NY];
+      reduced_pass<NY, CONST_BITS - PASS1_BITS>(x, o);
 #pragma unroll
-    for (int p = 0; p < NX; ++p) {
-      spat[p * NY + r] = min(max(out[p], SAMPLE_MIN), SAMPLE_MAX);
+      for (int r = 0; r < NY; ++r) xp[r * R::kRow + i] = o[r];
+    }
+    __syncwarp();
+    if (i < NY) {
+      uint32_t x[NX];
+      load_row<NX>(xp + i * R::kRow, x);
+      int32_t o[NX];
+      reduced_pass<NX, CONST_BITS + PASS1_BITS>(x, o);
+      const int base = s < L::GY ? s * L::NN
+                                 : L::kChromaRow0 + (s - L::GY) * NY * NX;
+      int8_t* samples = reinterpret_cast<int8_t*>(smem + L::kSamples);
+#pragma unroll
+      for (int p = 0; p < NX; ++p) {
+        samples[(base + p * NY + i) * SAMPLE_ROW + mj] =
+            static_cast<int8_t>(min(max(o[p], SAMPLE_MIN), SAMPLE_MAX));
+      }
+    }
+    __syncwarp();   // the next round overwrites the scratch
+  }
+};
+
+// Every round of kind A, then of kind B (B::kRounds may be 0), each
+// round's quantizers loaded during the round before it.
+template <typename A, typename B>
+__device__ __forceinline__ void run_kinds(const int32_t* __restrict__ qpool,
+                                          uint8_t* smem) {
+  uint32_t next[8] = {};
+  A::load_q(0, qpool, smem, next);
+#pragma unroll
+  for (int k = 0; k < A::kRounds + B::kRounds; ++k) {
+    uint32_t q[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) q[v] = next[v];
+    if (k + 1 < A::kRounds) {
+      A::load_q(k + 1, qpool, smem, next);
+    } else if (k + 1 < A::kRounds + B::kRounds) {
+      B::load_q(k + 1 - A::kRounds, qpool, smem, next);
+    }
+    if (k < A::kRounds) {
+      A::run(k, q, smem);
+    } else {
+      B::run(k - A::kRounds, q, smem);
     }
   }
 }
@@ -203,20 +496,56 @@ __global__ void __launch_bounds__(TILE_THREADS, TILE_MIN_BLOCKS)
 rgb_kernel(const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
            const int32_t* __restrict__ qpool, int num_q,
            uint8_t* __restrict__ out, long long num_mcus) {
-  constexpr int GY = H * V;
-  constexpr int G = NC == 1 ? 1 : GY + 2;
+  constexpr int G = NC == 1 ? 1 : H * V + 2;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int8_t* samples =
-      reinterpret_cast<const int8_t*>(smem + TileLayout<T, G>::kSamples);
   const long long m0 = static_cast<long long>(blockIdx.x) * TILE_MCUS;
   const int valid = tile_valid(m0, num_mcus);
   load_tile<T, G>(coeffs, qidx, num_q, m0, valid, smem);
   decode_tile<T, G>(qpool, smem);
   __syncthreads();
+  store_tile_rgb<H, V, NC, VEC16>(
+      reinterpret_cast<const int8_t*>(smem + TileLayout<T, G>::kSamples), out,
+      m0, num_mcus, valid);
+}
 
-  const size_t plane = static_cast<size_t>(GY) * 64 * num_mcus;
+// Scaled decode at 1/(8/N), output [3, GY, N*N, M], pixels column-major
+// (px*N + py).  A luma block takes the N-point reduced IDCT (N*N samples);
+// a chroma block the (V*N) x (H*N)-point one, since it covers V x H luma
+// blocks: no upsampling at scale >= 2, each luma slot (qv, qh) reads its
+// N x N region, and each chroma sample serves one luma pixel.  The tile
+// decodes its luma blocks, then its chroma blocks (run_kinds), and
+// stores like rgb_kernel: gray 16 bytes a lane, colour 8 pixels of a row a
+// lane (their BT.601 terms, then 8 bytes a plane), byte stores without
+// VEC16.
+template <typename T, int H, int V, int NC, int N, bool VEC16>
+__global__ void __launch_bounds__(TILE_THREADS, TILE_MIN_BLOCKS)
+rgb_scaled_kernel(const T* __restrict__ coeffs,
+                  const int32_t* __restrict__ qidx,
+                  const int32_t* __restrict__ qpool, int num_q,
+                  uint8_t* __restrict__ out, long long num_mcus) {
+  using L = ScaledLayout<T, H, V, NC, N>;
+  constexpr int GY = L::GY, NN = L::NN, CY = L::CY;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int8_t* samples =
+      reinterpret_cast<const int8_t*>(smem + L::kSamples);
+  const long long m0 = static_cast<long long>(blockIdx.x) * TILE_MCUS;
+  const int valid = tile_valid(m0, num_mcus);
+  load_scaled_tile<L>(coeffs, qidx, num_q, m0, valid, smem);
+  using Luma = Kind<L, T, N, N, 0, GY, 0>;
+  using Chroma = Kind<L, T, CY, L::CX, GY, NC == 3 ? 2 : 0,
+                      Luma::kWarpRounds % TILE_WARPS>;
+  run_kinds<Luma, Chroma>(qpool, smem);
+  __syncthreads();
+
+  const size_t plane = static_cast<size_t>(GY) * NN * num_mcus;
+  // The sample row of the chroma pixel that luma pixel pix of slot sl reads
+  // (decode_kernel.py's region (qv, qh) of the chroma IDCT).
+  const auto chroma_row = [](int sl, int pix) {
+    return L::kChromaRow0 + ((sl % H) * N + pix / N) * CY + (sl / H) * N +
+           pix % N;
+  };
   if constexpr (VEC16 && NC == 1) {
-    for_each_piece<64, VEC>(valid, [&](int row, int c16) {
+    for_each_piece<NN, VEC>(valid, [&](int row, int c16) {
       const int4 y = level_shift16(load16(samples + row * SAMPLE_ROW + c16));
       uint8_t* dst = out + static_cast<size_t>(row) * num_mcus + m0 + c16;
       *reinterpret_cast<int4*>(dst) = y;
@@ -224,114 +553,43 @@ rgb_kernel(const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
       *reinterpret_cast<int4*>(dst + 2 * plane) = y;
     });
   } else if constexpr (VEC16) {
-    // Chroma pixel c of 8 MCUs a lane: its terms once, then the H*V luma
-    // pixels it serves, 8 bytes a plane each (four lanes fill a row's 32
-    // bytes, so every warp store still writes whole sectors).
-    for_each_piece<64, 8>(valid, [&](int c, int c8) {
+    for_each_piece<GY * NN, 8>(valid, [&](int row, int c8) {
+      const int c = chroma_row(row / NN, row % NN);
+      const uint2 y = *reinterpret_cast<const uint2*>(
+          samples + row * SAMPLE_ROW + c8);
       const uint2 cb = *reinterpret_cast<const uint2*>(
-          samples + (GY * 64 + c) * SAMPLE_ROW + c8);
+          samples + c * SAMPLE_ROW + c8);
       const uint2 cr = *reinterpret_cast<const uint2*>(
-          samples + ((GY + 1) * 64 + c) * SAMPLE_ROW + c8);
-      int32_t tr[8], tg[8], tb[8];
+          samples + (c + GY * NN) * SAMPLE_ROW + c8);
+      uint8_t r[8], g[8], b[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        chroma_terms(sample8_at(cb, j), sample8_at(cr, j), tr[j], tg[j],
-                     tb[j]);
+        int32_t tr, tg, tb;
+        chroma_terms(sample8_at(cb, j), sample8_at(cr, j), tr, tg, tb);
+        const int32_t y128 = sample8_at(y, j) + 128;
+        r[j] = to_u8(y128 + tr);
+        g[j] = to_u8(y128 + tg);
+        b[j] = to_u8(y128 + tb);
       }
-#pragma unroll
-      for (int k = 0; k < GY; ++k) {
-        const int row = luma_of_chroma<H, V>(c, k);
-        const uint2 y = *reinterpret_cast<const uint2*>(
-            samples + row * SAMPLE_ROW + c8);
-        uint8_t r[8], g[8], b[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int32_t y128 = sample8_at(y, j) + 128;
-          r[j] = to_u8(y128 + tr[j]);
-          g[j] = to_u8(y128 + tg[j]);
-          b[j] = to_u8(y128 + tb[j]);
-        }
-        uint8_t* dst = out + static_cast<size_t>(row) * num_mcus + m0 + c8;
-        *reinterpret_cast<uint2*>(dst) = pack8(r);
-        *reinterpret_cast<uint2*>(dst + plane) = pack8(g);
-        *reinterpret_cast<uint2*>(dst + 2 * plane) = pack8(b);
-      }
+      uint8_t* dst = out + static_cast<size_t>(row) * num_mcus + m0 + c8;
+      *reinterpret_cast<uint2*>(dst) = pack8(r);
+      *reinterpret_cast<uint2*>(dst + plane) = pack8(g);
+      *reinterpret_cast<uint2*>(dst + 2 * plane) = pack8(b);
     });
   } else {
-    store_rgb<GY, 64, TILE_MCUS, TILE_THREADS>(
+    store_rgb<GY, NN, TILE_MCUS, TILE_THREADS>(
         out, m0, num_mcus,
         [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
-          const int32_t y = samples[(sl * 64 + pix) * SAMPLE_ROW + mj];
+          const int32_t y = samples[(sl * NN + pix) * SAMPLE_ROW + mj];
           if (NC == 1) {
-            r = g = b = static_cast<uint8_t>(y + 128);
+            r = g = b = to_u8(y + 128);
           } else {
-            const int c = chroma_pix<H, V>(sl, pix);
-            bt601(y, samples[(GY * 64 + c) * SAMPLE_ROW + mj],
-                  samples[((GY + 1) * 64 + c) * SAMPLE_ROW + mj], r, g, b);
+            const int c = chroma_row(sl, pix);
+            bt601(y, samples[c * SAMPLE_ROW + mj],
+                  samples[(c + GY * NN) * SAMPLE_ROW + mj], r, g, b);
           }
         });
   }
-}
-
-// Scaled decode at 1/(8/N): the same thread layout and shared-memory
-// staging as rgb_kernel.  A luma thread takes the N-point reduced IDCT of
-// its block (n*n samples); a chroma thread the (V*N) x (H*N)-point one,
-// since a chroma block covers V x H luma blocks: no upsampling at scale
-// >= 2, each luma slot (qv, qh) reads its N x N region.  Output
-// [3, GY, N*N, M], pixels column-major (px*N + py).
-template <typename T, int H, int V, int NC, int N>
-__global__ void __launch_bounds__((NC == 1 ? 1 : H * V + 2) * TILE)
-rgb_scaled_kernel(const T* __restrict__ coeffs,
-                  const int32_t* __restrict__ qidx,
-                  const int32_t* __restrict__ qpool, int num_q,
-                  uint8_t* __restrict__ out, long long num_mcus) {
-  constexpr int GY = H * V;
-  constexpr int G = NC == 1 ? 1 : GY + 2;
-  constexpr int NN = N * N;
-  constexpr int CY = V * N, CX = H * N;     // chroma rows, columns
-  constexpr int CNN = CY * CX;
-  // [luma slot][NN pixels][MCU], then [Cb, Cr][CNN pixels][MCU].
-  __shared__ int8_t samples[(GY * NN + (G - GY) * CNN) * TILE];
-
-  const int ml = threadIdx.x % TILE;
-  const long long m0 = static_cast<long long>(blockIdx.x) * TILE;
-  if (m0 + ml < num_mcus) {
-    const int s = threadIdx.x / TILE;
-    if (s < GY) {
-      int32_t spat[NN];
-      decode_block_reduced<T, G, N, N>(coeffs, qidx, qpool, num_q, m0 + ml,
-                                       s, spat);
-#pragma unroll
-      for (int k = 0; k < NN; ++k) {
-        samples[(s * NN + k) * TILE + ml] = static_cast<int8_t>(spat[k]);
-      }
-    } else {
-      int32_t spat[CNN];
-      decode_block_reduced<T, G, CY, CX>(coeffs, qidx, qpool, num_q,
-                                         m0 + ml, s, spat);
-      const int base = GY * NN + (s - GY) * CNN;
-#pragma unroll
-      for (int k = 0; k < CNN; ++k) {
-        samples[(base + k) * TILE + ml] = static_cast<int8_t>(spat[k]);
-      }
-    }
-  }
-  __syncthreads();
-
-  store_rgb<GY, NN, TILE, G * TILE>(
-      out, m0, num_mcus,
-      [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
-        const int32_t y = samples[(sl * NN + pix) * TILE + mj];
-        if (NC == 1) {
-          r = g = b = to_u8(y + 128);
-        } else {
-          const int row = (sl / H) * N + pix % N;
-          const int col = (sl % H) * N + pix / N;
-          const int cpix = GY * NN + col * CY + row;
-          bt601(y, samples[cpix * TILE + mj],
-                samples[(cpix + CNN) * TILE + mj], r, g, b);
-        }
-      });
 }
 
 struct Args {
@@ -349,73 +607,61 @@ template <typename T>
 using KernelFn = void (*)(const T*, const int32_t*, const int32_t*, int,
                           uint8_t*, long long);
 
-// Let a tile kernel have its dynamic shared memory and the largest
-// shared-memory carveout, so that TILE_MIN_BLOCKS blocks fit an SM.
-inline cudaError_t prepare(const void* kernel, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  }
-  return e;
-}
-
-// A full-scale tile kernel and its dynamic shared memory, prepared once
-// per instantiation.
-template <typename T, int H, int V, int NC, bool YCBCR, bool VEC16>
-cudaError_t tile_kernel(KernelFn<T>& fn, int& smem) {
+// The tile kernel of one decode form (N == 8: ycbcr_kernel or rgb_kernel;
+// else rgb_scaled_kernel at N points) and its dynamic shared memory,
+// prepared once per instantiation.
+template <typename T, int H, int V, int NC, bool YCBCR, int N, bool VEC16>
+cudaError_t kernel_of(KernelFn<T>& fn, int& smem) {
   constexpr int G = NC == 1 ? 1 : H * V + 2;
-  if constexpr (YCBCR) {
+  if constexpr (N == 8 && YCBCR) {
     fn = ycbcr_kernel<T, G, VEC16>;
-  } else {
+    smem = TileLayout<T, G>::kBytes;
+  } else if constexpr (N == 8) {
     fn = rgb_kernel<T, H, V, NC, VEC16>;
+    smem = TileLayout<T, G>::kBytes;
+  } else {
+    fn = rgb_scaled_kernel<T, H, V, NC, N, VEC16>;
+    smem = ScaledLayout<T, H, V, NC, N>::kBytes;
   }
-  smem = TileLayout<T, G>::kBytes;
   static const cudaError_t ready =
       prepare(reinterpret_cast<const void*>(fn), smem);
   return ready;
 }
 
+// The kernel a decode launches (TILE_THREADS threads a TILE_MCUS tile):
+// ycbcr or RGB at scale 1, scaled RGB at 2, 4 or 8; with the 16-byte
+// stores (vec16) or the byte stores.
 template <typename T, int H, int V, int NC>
-cudaError_t pick_tile_kernel(bool ycbcr, bool vec16, KernelFn<T>& fn,
-                             int& smem) {
-  if (ycbcr) {
-    return vec16 ? tile_kernel<T, H, V, NC, true, true>(fn, smem)
-                 : tile_kernel<T, H, V, NC, true, false>(fn, smem);
+cudaError_t pick_kernel(bool ycbcr, int scale, bool vec16, KernelFn<T>& fn,
+                        int& smem) {
+  const auto pick = [&](auto ycbcr_c, auto n) {
+    constexpr bool Y = decltype(ycbcr_c)::value;
+    constexpr int N = decltype(n)::value;
+    return vec16 ? kernel_of<T, H, V, NC, Y, N, true>(fn, smem)
+                 : kernel_of<T, H, V, NC, Y, N, false>(fn, smem);
+  };
+  using std::integral_constant;
+  if (scale == 1) {
+    return ycbcr ? pick(std::true_type{}, integral_constant<int, 8>{})
+                 : pick(std::false_type{}, integral_constant<int, 8>{});
   }
-  return vec16 ? tile_kernel<T, H, V, NC, false, true>(fn, smem)
-               : tile_kernel<T, H, V, NC, false, false>(fn, smem);
+  if (ycbcr) return cudaErrorInvalidValue;
+  if (scale == 2) return pick(std::false_type{}, integral_constant<int, 4>{});
+  if (scale == 4) return pick(std::false_type{}, integral_constant<int, 2>{});
+  if (scale == 8) return pick(std::false_type{}, integral_constant<int, 1>{});
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int H, int V, int NC>
 int launch(const Args& a, bool ycbcr, int scale) {
-  constexpr int G = NC == 1 ? 1 : H * V + 2;
-  const T* coeffs = static_cast<const T*>(a.coeffs);
   KernelFn<T> kernel;
-  if (scale == 1) {
-    int smem;
-    const cudaError_t e =
-        pick_tile_kernel<T, H, V, NC>(ycbcr, a.vec16, kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<grid(a.num_mcus, TILE_MCUS), TILE_THREADS, smem, a.stream>>>(
-        coeffs, a.qidx, a.qpool, a.num_q, a.out, a.num_mcus);
-    return cudaGetLastError();
-  }
-  if (ycbcr) {
-    return cudaErrorInvalidValue;
-  } else if (scale == 2) {
-    kernel = rgb_scaled_kernel<T, H, V, NC, 4>;
-  } else if (scale == 4) {
-    kernel = rgb_scaled_kernel<T, H, V, NC, 2>;
-  } else if (scale == 8) {
-    kernel = rgb_scaled_kernel<T, H, V, NC, 1>;
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  kernel<<<grid(a.num_mcus, TILE), G * TILE, 0, a.stream>>>(
-      coeffs, a.qidx, a.qpool, a.num_q, a.out, a.num_mcus);
+  int smem;
+  const cudaError_t e =
+      pick_kernel<T, H, V, NC>(ycbcr, scale, a.vec16, kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid(a.num_mcus, TILE_MCUS), TILE_THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.coeffs), a.qidx, a.qpool, a.num_q, a.out,
+      a.num_mcus);
   return cudaGetLastError();
 }
 
@@ -493,13 +739,12 @@ extern "C" int pjt_cuda_decode_rgb_scaled(const void* coeffs, int wire_bytes,
                 ncomp, stream, false, scale);
 }
 
-// The full-scale tile kernel a decode launches (ycbcr or RGB; with the
-// 16-byte stores or the byte stores): its dynamic shared memory in
-// *smem_bytes and the blocks of TILE_THREADS an SM holds in
+// The tile kernel a decode launches (see pick_kernel): its dynamic shared
+// memory in *smem_bytes and the blocks of TILE_THREADS an SM holds in
 // *blocks_per_sm (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int pjt_cuda_decode_occupancy(int wire_bytes, int h, int v,
-                                         int ncomp, int ycbcr, int vec16,
-                                         int* blocks_per_sm,
+                                         int ncomp, int ycbcr, int scale,
+                                         int vec16, int* blocks_per_sm,
                                          int* smem_bytes) {
   return dispatch_wire(wire_bytes, [&](auto wire) {
     using T = decltype(wire);
@@ -507,8 +752,8 @@ extern "C" int pjt_cuda_decode_occupancy(int wire_bytes, int h, int v,
       using M = decltype(mode);
       KernelFn<T> kernel;
       int smem = 0;
-      cudaError_t e = pick_tile_kernel<T, M::h, M::v, M::nc>(
-          ycbcr != 0, vec16 != 0, kernel, smem);
+      cudaError_t e = pick_kernel<T, M::h, M::v, M::nc>(
+          ycbcr != 0, scale, vec16 != 0, kernel, smem);
       if (e == cudaSuccess) {
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             blocks_per_sm, kernel, TILE_THREADS, smem);

@@ -1,7 +1,9 @@
 // Tile helpers of the full-scale decode kernels (rgb_kernel, ycbcr_kernel
-// in decode_kernel.cu): a CUDA block copies a tile of TILE_MCUS
-// consecutive MCUs into shared memory, decodes every 8x8 block of it with
-// 8 threads, and writes its output rows 16 bytes a lane.  The design and
+// in decode_kernel.cu; rgb_stacked_kernel in kernel_opt.cu; the tile
+// constants and stores also serve rgb_scaled_kernel): a CUDA block copies
+// a tile of TILE_MCUS consecutive MCUs into shared memory, decodes every
+// 8x8 block of it with 8 threads, and writes its output rows 16 bytes a
+// lane.  The design and
 // its reasons are in decode_kernel.cu's header.  The arithmetic is
 // decode_common.cuh's (dequant, idct_1d, bt601, chroma_pix), unchanged;
 // the per-thread helpers there (load_block, dequant_block, idct_block,
@@ -41,6 +43,23 @@ struct TileLayout {
   static constexpr int kBytes = kQrows + TILE_MCUS * 4;
 };
 
+// For the layouts' static_asserts: true when no two of n lanes, lane l
+// accessing `width` consecutive int32 words from word[l] (-1: idle), touch
+// different words of one bank, so that one shared-memory phase (32 lanes of
+// 4-byte, 16 of 8-byte or 8 of 16-byte accesses) has no conflict.
+constexpr bool phase_conflict_free(const int* word, int n, int width) {
+  int held[32] = {};
+  for (int b = 0; b < 32; ++b) held[b] = -1;
+  for (int l = 0; l < n; ++l) {
+    for (int w = 0; w < width && word[l] >= 0; ++w) {
+      const int a = word[l] + w;
+      if (held[a % 32] >= 0 && held[a % 32] != a) return false;
+      held[a % 32] = a;
+    }
+  }
+  return true;
+}
+
 // The block's MCUs: TILE_MCUS, or fewer in the ragged last tile.
 __device__ __forceinline__ int tile_valid(long long m0, long long num_mcus) {
   const long long left = num_mcus - m0;
@@ -50,13 +69,13 @@ __device__ __forceinline__ int tile_valid(long long m0, long long num_mcus) {
 // Copy the tile's wire bytes (one contiguous run of valid * kMcuBytes
 // bytes, 16-byte aligned: kMcuBytes is a multiple of 64) into shared
 // memory with 16-byte asynchronous copies, lane i on chunk i; meanwhile
-// stage each MCU's quantizer row.  Returns after both have landed.
-template <typename T, int G>
+// stage each MCU's quantizer row.  Returns after both have landed.  L is
+// TileLayout, or a layout with the same members and another scratch.
+template <typename T, int G, typename L = TileLayout<T, G>>
 __device__ __forceinline__ void load_tile(const T* __restrict__ coeffs,
                                           const int32_t* __restrict__ qidx,
                                           int num_q, long long m0, int valid,
                                           uint8_t* smem) {
-  using L = TileLayout<T, G>;
   constexpr int kChunks = L::kMcuBytes / VEC;   // per MCU
   constexpr int kRounds = (TILE_MCUS * kChunks + TILE_THREADS - 1) /
                           TILE_THREADS;
@@ -215,6 +234,91 @@ __device__ __forceinline__ void chroma_terms(int32_t cb, int32_t cr,
   tg = descale_color(static_cast<uint32_t>(FIX_CB_G) * ucb +
                      static_cast<uint32_t>(FIX_CR_G) * ucr);
   tb = descale_color(static_cast<uint32_t>(FIX_CB_B) * ucb);
+}
+
+// The RGB store of a decoded tile (rgb_kernel; kernel_opt.cu's
+// rgb_stacked_kernel): samples [slot][pixel][MCU] int8, rows of SAMPLE_ROW
+// bytes, to uint8 [3, GY, 64, M] after the block's last __syncthreads.
+// Gray: each row 16 bytes a lane, to all three planes.  Colour: chroma
+// pixel c of 8 MCUs a lane, its three BT.601 terms once, then the H*V luma
+// pixels it serves, 8 bytes a plane each (four lanes fill a row's 32
+// bytes, so every warp store still writes whole sectors).  Without VEC16
+// (a row off the 16-byte grid) store_rgb's byte stores, which also mask
+// the ragged last tile.
+template <int H, int V, int NC, bool VEC16>
+__device__ __forceinline__ void store_tile_rgb(const int8_t* samples,
+                                               uint8_t* __restrict__ out,
+                                               long long m0,
+                                               long long num_mcus,
+                                               int valid) {
+  constexpr int GY = H * V;
+  const size_t plane = static_cast<size_t>(GY) * 64 * num_mcus;
+  if constexpr (VEC16 && NC == 1) {
+    for_each_piece<64, VEC>(valid, [&](int row, int c16) {
+      const int4 y = level_shift16(load16(samples + row * SAMPLE_ROW + c16));
+      uint8_t* dst = out + static_cast<size_t>(row) * num_mcus + m0 + c16;
+      *reinterpret_cast<int4*>(dst) = y;
+      *reinterpret_cast<int4*>(dst + plane) = y;
+      *reinterpret_cast<int4*>(dst + 2 * plane) = y;
+    });
+  } else if constexpr (VEC16) {
+    for_each_piece<64, 8>(valid, [&](int c, int c8) {
+      const uint2 cb = *reinterpret_cast<const uint2*>(
+          samples + (GY * 64 + c) * SAMPLE_ROW + c8);
+      const uint2 cr = *reinterpret_cast<const uint2*>(
+          samples + ((GY + 1) * 64 + c) * SAMPLE_ROW + c8);
+      int32_t tr[8], tg[8], tb[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        chroma_terms(sample8_at(cb, j), sample8_at(cr, j), tr[j], tg[j],
+                     tb[j]);
+      }
+#pragma unroll
+      for (int k = 0; k < GY; ++k) {
+        const int row = luma_of_chroma<H, V>(c, k);
+        const uint2 y = *reinterpret_cast<const uint2*>(
+            samples + row * SAMPLE_ROW + c8);
+        uint8_t r[8], g[8], b[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int32_t y128 = sample8_at(y, j) + 128;
+          r[j] = to_u8(y128 + tr[j]);
+          g[j] = to_u8(y128 + tg[j]);
+          b[j] = to_u8(y128 + tb[j]);
+        }
+        uint8_t* dst = out + static_cast<size_t>(row) * num_mcus + m0 + c8;
+        *reinterpret_cast<uint2*>(dst) = pack8(r);
+        *reinterpret_cast<uint2*>(dst + plane) = pack8(g);
+        *reinterpret_cast<uint2*>(dst + 2 * plane) = pack8(b);
+      }
+    });
+  } else {
+    store_rgb<GY, 64, TILE_MCUS, TILE_THREADS>(
+        out, m0, num_mcus,
+        [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
+          const int32_t y = samples[(sl * 64 + pix) * SAMPLE_ROW + mj];
+          if (NC == 1) {
+            r = g = b = static_cast<uint8_t>(y + 128);
+          } else {
+            const int c = chroma_pix<H, V>(sl, pix);
+            bt601(y, samples[(GY * 64 + c) * SAMPLE_ROW + mj],
+                  samples[((GY + 1) * 64 + c) * SAMPLE_ROW + mj], r, g, b);
+          }
+        });
+  }
+}
+
+// Let a tile kernel have its dynamic shared memory and the largest
+// shared-memory carveout, so that its blocks fit an SM as planned.
+inline cudaError_t prepare(const void* kernel, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  return e;
 }
 
 }  // namespace

@@ -141,7 +141,8 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_mxu64,
                      [ptr, ptr, ptr, ctypes.c_int64, f32, ptr]),
                     (lib.pjt_cuda_vlc, [ptr] * 5),
-                    (lib.pjt_cuda_decode_occupancy, [i32] * 6 + [ptr, ptr]),
+                    (lib.pjt_cuda_decode_occupancy, [i32] * 7 + [ptr, ptr]),
+                    (lib.pjt_cuda_stacked_occupancy, [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_raster_occupancy, [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_dequant_occupancy, [i32] * 2 + [ptr]),
                     (lib.pjt_cuda_idct_occupancy, [ptr, ptr]),

@@ -309,18 +309,19 @@ def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
 
 
 def tile_occupancy(wire_bytes: int, mode: S.ModeSpec, ycbcr: bool,
-                   vec16: bool = True) -> Tuple[int, int]:
-    """``(blocks per SM, dynamic shared memory bytes)`` of the full-scale
-    tile kernel that a decode of ``mode`` on this wire launches (``vec16``:
-    the 16-byte-store form taken when M % 16 == 0), from the CUDA occupancy
-    calculator on the current card."""
+                   vec16: bool = True, scale: int = 1) -> Tuple[int, int]:
+    """``(blocks per SM, dynamic shared memory bytes)`` of the tile kernel
+    that a decode of ``mode`` on this wire launches (``scale`` 1: ycbcr or
+    rgb; 2/4/8: rgb_scaled; ``vec16``: the 16-byte-store form taken when
+    M % 16 == 0), from the CUDA occupancy calculator on the current
+    card."""
     import ctypes
 
     from pim_jpeg_decoder_tpu_torch.ops._build import load
     blocks, smem = ctypes.c_int(), ctypes.c_int()
     rc = load().pjt_cuda_decode_occupancy(
-        wire_bytes, mode.h, mode.v, mode.ncomp, int(ycbcr), int(vec16),
-        ctypes.byref(blocks), ctypes.byref(smem))
+        wire_bytes, mode.h, mode.v, mode.ncomp, int(ycbcr), scale,
+        int(vec16), ctypes.byref(blocks), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc}")
     return blocks.value, smem.value

@@ -1,6 +1,7 @@
 """A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``),
-the raster epilogue and the dequantize, IDCT and colour stage kernels
-between two checkouts, in one call on one card.
+the raster epilogue, the dequantize, IDCT and colour stage kernels, the
+scaled decode kernel and the stacked experiment kernel between two
+checkouts, in one call on one card.
 
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent DIR
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --root DIR
@@ -26,7 +27,12 @@ crops of the scale-1 batch -> bfloat16 normalised; the dequantize stage
 (``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires;
 the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
 4:2:0, M=16,384 and 196,608, int16: the IDCT on the dequantize stage's
-output, the colour stage on the IDCT stage's, of the same seeded inputs.
+output, the colour stage on the IDCT stage's, of the same seeded inputs;
+the scaled decode (``SCALED_GEOMETRIES``: 4:2:0 scale 2 at M=16,384 and
+196,608 on both wires, scale 4 and 8 at 196,608 int8, gray and 4:4:4
+scale 2 at 16,384 int8); the stacked kernel (``STACKED_GEOMETRIES``: 4:2:0
+at M=16,384 on both wires and 196,608 int16), whose lines end with
+``rgb_kernel``'s time on the same geometry from the same runs.
 Inputs: Laplace(0, 6) coefficients, Q=16 quantizer rows (one of 16-bit
 values), uniform bytes for the epilogue, drawn from a fixed seed, rotated
 past twice the L2 (``utils/devbench.rotation_count``); each time is the
@@ -74,6 +80,15 @@ DEQUANT_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
 # M of the IDCT and colour stages at 4:2:0, int16
 IDCT_GEOMETRIES: Tuple[int, ...] = (16384, 196608)
 COLOR_GEOMETRIES: Tuple[int, ...] = (16384, 196608)
+# ((h, v, ncomp), scale, M, wire bytes) of the scaled decode
+SCALED_GEOMETRIES: Tuple[Tuple[tuple, int, int, int], ...] = (
+    ((2, 2, 3), 2, 16384, 1), ((2, 2, 3), 2, 16384, 2),
+    ((2, 2, 3), 2, 196608, 1), ((2, 2, 3), 2, 196608, 2),
+    ((2, 2, 3), 4, 196608, 1), ((2, 2, 3), 8, 196608, 1),
+    ((1, 1, 1), 2, 16384, 1), ((1, 1, 3), 2, 16384, 1))
+# (M, wire bytes) of the stacked kernel at 4:2:0
+STACKED_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
+    (16384, 1), (16384, 2), (196608, 2))
 ORDER = ("parent", "change", "change", "parent")
 
 
@@ -95,6 +110,19 @@ def stage_name(stage: str, m: int) -> str:
     return geometry_name(stage, "4:2:0", m, 2)
 
 
+def scaled_name(key: tuple, scale: int, m: int, wire: int) -> str:
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+
+    return geometry_name(f"rgb_scaled scale {scale}", S.mode_for(key).name,
+                         m, wire)
+
+
+def stacked_name(m: int, wire: int) -> str:
+    """The stacked kernel at 4:2:0; ``rgb_kernel``'s geometry of the same
+    M and wire is ``geometry_name("rgb", "4:2:0", m, wire)``."""
+    return geometry_name("stacked", "4:2:0", m, wire)
+
+
 def geometry_names() -> List[str]:
     """Every geometry ``side`` times, in its order."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
@@ -103,7 +131,9 @@ def geometry_names() -> List[str]:
              for k, key, m, w in GEOMETRIES]
             + [epilogue_name(label) for label, _, _, _ in EPILOGUE_GEOMETRIES]
             + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES]
-            + [stage_name(stage, m) for stage, m in stage_geometries()])
+            + [stage_name(stage, m) for stage, m in stage_geometries()]
+            + [scaled_name(*g) for g in SCALED_GEOMETRIES]
+            + [stacked_name(m, w) for m, w in STACKED_GEOMETRIES])
 
 
 def stage_geometries() -> List[Tuple[str, int]]:
@@ -196,6 +226,7 @@ def side() -> dict:
 
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import rgb_stacked
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_stage, dequantize_stage, idct_stage)
     from pim_jpeg_decoder_tpu_torch.utils.devbench import seconds_per_launch
@@ -245,6 +276,19 @@ def side() -> dict:
         measure(stage_name(stage, m), stages[stage], bufs)
         del bufs
         torch.cuda.empty_cache()
+    for key, scale, m, wire in SCALED_GEOMETRIES:
+        scaled_mode = S.mode_for(key)
+        bufs = _inputs(torch, scaled_mode, m, wire, dev)
+        measure(scaled_name(key, scale, m, wire),
+                lambda b: decode_mcus(*b, scaled_mode, raw=True, scale=scale),
+                bufs)
+        del bufs
+        torch.cuda.empty_cache()
+    for m, wire in STACKED_GEOMETRIES:
+        bufs = _inputs(torch, mode, m, wire, dev)
+        measure(stacked_name(m, wire), lambda b: rgb_stacked(*b, mode), bufs)
+        del bufs
+        torch.cuda.empty_cache()
     return {"card": torch.cuda.get_device_name(0), "results": results}
 
 
@@ -270,6 +314,26 @@ def verdict(runs: Sequence[dict]) -> Dict[str, dict]:
                        "speedup": statistics.mean(p) / statistics.mean(c),
                        "verdict": word}
     return table
+
+
+def report_lines(table: Dict[str, dict], card: str) -> List[str]:
+    """A line per geometry of ``verdict``'s table; a stacked geometry's
+    line ends with ``rgb_kernel``'s mean times on the same geometry."""
+    beside = {stacked_name(m, w): geometry_name("rgb", "4:2:0", m, w)
+              for m, w in STACKED_GEOMETRIES}
+    lines = []
+    for name, row in table.items():
+        rgb = table.get(beside.get(name))
+        note = (f"; rgb_kernel in the same runs: parent "
+                f"{statistics.mean(rgb['parent_us']):.2f}, change "
+                f"{statistics.mean(rgb['change_us']):.2f} us" if rgb else "")
+        lines.append(f"{name}: parent {row['parent_us'][0]:.2f}, "
+                     f"{row['parent_us'][1]:.2f} us; change "
+                     f"{row['change_us'][0]:.2f}, {row['change_us'][1]:.2f} "
+                     f"us; band {row['band_us']:.2f} us; "
+                     f"{row['speedup']:.3f}x, {row['verdict']}{note} | "
+                     f"{card}")
+    return lines
 
 
 def digests_agree(runs: Sequence[dict]) -> List[str]:
@@ -310,12 +374,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"outputs differ between runs: {bad}", file=sys.stderr)
         return 1
     table = verdict(runs)
-    for name, row in table.items():
-        print(f"{name}: parent {row['parent_us'][0]:.2f}, "
-              f"{row['parent_us'][1]:.2f} us; change "
-              f"{row['change_us'][0]:.2f}, {row['change_us'][1]:.2f} us; "
-              f"band {row['band_us']:.2f} us; {row['speedup']:.3f}x, "
-              f"{row['verdict']} | {runs[0]['card']}", flush=True)
+    for line in report_lines(table, runs[0]["card"]):
+        print(line, flush=True)
     print(json.dumps(table))
     return 0
 

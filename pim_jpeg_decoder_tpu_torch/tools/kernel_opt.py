@@ -30,8 +30,9 @@ Not run: ``stacked_fusedmm`` differs from ``stacked`` only in gathering
 the quantizers with one one-hot matmul on the TPU's matrix unit, which on
 a GPU is the indexed load every kernel already does; ``prod_lt256`` and
 ``stacked_lt256`` change the TPU lane tile, a TPU block width, while the
-CUDA variants take ``TILE`` = 64 MCUs per block (``csrc/decode_common.cuh``)
-and ``rgb_kernel`` 32 (``csrc/decode_tile.cuh``).
+memory floor and truerez take ``TILE`` = 64 MCUs per block
+(``csrc/decode_common.cuh``), ``rgb_kernel`` and the stacked kernel
+``TILE_MCUS`` = 32 (``csrc/decode_tile.cuh``).
 
 Needs a CUDA card: a CPU run is not a device time.
 """

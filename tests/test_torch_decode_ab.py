@@ -33,7 +33,7 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == 16 + 3 + 4 + 4
+    assert len(names) == len(set(names)) == 16 + 3 + 4 + 4 + 8 + 3
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
@@ -56,11 +56,12 @@ def test_epilogue_and_dequantize_geometries_are_named():
 
 
 def test_idct_and_colour_geometries_are_named_and_ordered():
-    """Both stages at 4:2:0 int16, M=16,384 and 196,608, last and in the
-    order ``side`` times them: by M, the IDCT before the colour stage."""
+    """Both stages at 4:2:0 int16, M=16,384 and 196,608, after the
+    dequantize geometries and in the order ``side`` times them: by M, the
+    IDCT before the colour stage."""
     names = A.geometry_names()
     assert A.IDCT_GEOMETRIES == A.COLOR_GEOMETRIES == (16384, 196608)
-    assert names[16 + 3 + 4:] == [
+    assert names[16 + 3 + 4:16 + 3 + 4 + 4] == [
         "idct 4:2:0 M=16384 int16", "color 4:2:0 M=16384 int16",
         "idct 4:2:0 M=196608 int16", "color 4:2:0 M=196608 int16"]
     assert A.stage_geometries() == [("idct", 16384), ("color", 16384),
@@ -88,7 +89,10 @@ def _named_runs(us_by_name, digests=None):
     "epilogue B=256 500x375 4:2:0 224x224 crops -> bfloat16",
     "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8",
     "idct 4:2:0 M=16384 int16", "idct 4:2:0 M=196608 int16",
-    "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16"])
+    "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16",
+    "rgb_scaled scale 2 4:2:0 M=16384 int8",
+    "rgb_scaled scale 8 4:2:0 M=196608 int8",
+    "stacked 4:2:0 M=16384 int8", "stacked 4:2:0 M=196608 int16"])
 def test_verdict_on_the_new_geometries(name):
     """Each geometry gets its own verdict from its own band: the named one
     faster beyond it, a decode kernel beside it within its band."""
@@ -157,3 +161,43 @@ def test_crop_origins_fit_the_scaled_image(scale):
         assert o.dtype == torch.int32 and o.shape == (b,)
         assert int(o.min()) >= 0 and int(o.max()) <= full // scale - size
     assert torch.equal(oy, again[0]) and torch.equal(ox, again[1])
+
+
+def test_scaled_and_stacked_geometries_are_named_and_last():
+    """The scaled decode at 4:2:0 scale 2 on both wires at M=16,384 and
+    196,608, scale 4 and 8 at 196,608 int8, gray and 4:4:4 scale 2 at
+    16,384 int8; the stacked kernel at 4:2:0, M=16,384 on both wires and
+    196,608 int16, each with rgb_kernel's geometry of the same M and wire
+    in the table."""
+    names = A.geometry_names()
+    scaled = [A.scaled_name(*g) for g in A.SCALED_GEOMETRIES]
+    stacked = [A.stacked_name(m, w) for m, w in A.STACKED_GEOMETRIES]
+    assert names[16 + 3 + 4 + 4:] == scaled + stacked
+    want = {("4:2:0", 2, 16384, 8), ("4:2:0", 2, 16384, 16),
+            ("4:2:0", 2, 196608, 8), ("4:2:0", 2, 196608, 16),
+            ("4:2:0", 4, 196608, 8), ("4:2:0", 8, 196608, 8),
+            ("gray", 2, 16384, 8), ("4:4:4", 2, 16384, 8)}
+    assert {(S.mode_for(k).name, s, m, 8 * w)
+            for k, s, m, w in A.SCALED_GEOMETRIES} == want
+    assert A.scaled_name((2, 2, 3), 2, 16384, 1) == (
+        "rgb_scaled scale 2 4:2:0 M=16384 int8")
+    assert set(A.STACKED_GEOMETRIES) == {(16384, 1), (16384, 2),
+                                         (196608, 2)}
+    for m, w in A.STACKED_GEOMETRIES:
+        assert A.geometry_name("rgb", "4:2:0", m, w) in names
+
+
+def test_stacked_lines_carry_rgb_kernel_times():
+    """``report_lines``: a stacked geometry's line ends with rgb_kernel's
+    mean times from the same runs; the other lines carry no such note."""
+    table = A.verdict(_named_runs({
+        "stacked 4:2:0 M=16384 int8": ((47.0, 47.4), (20.0, 20.2)),
+        "rgb 4:2:0 M=16384 int8": ((19.0, 19.2), (19.1, 19.3)),
+        "idct 4:2:0 M=16384 int16": ((12.0, 12.1), (12.0, 12.1))}))
+    lines = A.report_lines(table, "card")
+    assert len(lines) == 3 and all(ln.endswith("| card") for ln in lines)
+    stacked = [ln for ln in lines if ln.startswith("stacked")][0]
+    assert "faster" in stacked
+    assert ("rgb_kernel in the same runs: parent 19.10, change 19.20 us"
+            in stacked)
+    assert sum("rgb_kernel in the same runs" in ln for ln in lines) == 1

@@ -196,3 +196,135 @@ def test_cli_scale_2_matches_jax_cli(tmp_path, monkeypatch):
                                    "--device", "cpu"]) == 0
     assert len(_digests(dirs[1])) == 6
     assert _digests(dirs[1]) == _digests(dirs[0])
+
+
+# --- the CUDA kernel's even/odd reduced pass and its tile --------------------
+# rgb_scaled_kernel (csrc/decode_kernel.cu) runs each reduced pass through
+# the exact even/odd split of the rounded basis (reduced_sums).  The card
+# holds the kernel against the plain version; here the split itself is held
+# against the spec and against both packages' matrix passes.
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_reduced_basis_has_the_even_odd_symmetry(n):
+    """``basis[n-1-k][u] == (-1)^u basis[k][u]`` (o[n-1-k] = E - O), and the
+    even columns are the n/2-point basis (E recurses)."""
+    b = S.reduced_idct_matrix(n)
+    half = S.reduced_idct_matrix(n // 2)
+    for k in range(n):
+        for u in range(n):
+            assert b[n - 1 - k][u] == (-1) ** u * b[k][u]
+    for k in range(n // 2):
+        for j in range(n // 2):
+            assert b[k][2 * j] == half[k][j]
+
+
+def _even_odd_sums(x, n):
+    """NumPy model of the kernel's reduced_sums: the n sums of one n-point
+    pass by the even/odd split, in wrap-around uint32 (``x``: a list of n
+    uint32 arrays)."""
+    if n == 1:
+        return [x[0] * np.uint32(S.reduced_idct_matrix(1)[0][0] % 2 ** 32)]
+    b = [[np.uint32(c % 2 ** 32) for c in row]
+         for row in S.reduced_idct_matrix(n)]
+    h = n // 2
+    e = _even_odd_sums(x[0::2], h)
+    o = [None] * n
+    for k in range(h):
+        odd = x[1] * b[k][1]
+        for j in range(1, h):
+            odd = odd + x[2 * j + 1] * b[k][2 * j + 1]
+        o[k], o[n - 1 - k] = e[k] + odd, e[k] - odd
+    return o
+
+
+def _even_odd_pass(x, n, shift):
+    """The model's descaled pass: (sum + 2^(shift-1)) >> shift, arithmetic
+    shift of the wrapped int32."""
+    with np.errstate(over="ignore"):
+        sums = _even_odd_sums([v.astype(np.uint32) for v in x], n)
+        half = np.uint32(1 << (shift - 1))
+        return [((s + half).view(np.int32) >> shift) for s in sums]
+
+
+@pytest.mark.parametrize("shift", [S.CONST_BITS - S.PASS1_BITS,
+                                   S.CONST_BITS + S.PASS1_BITS])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("draw", ["extreme", "random", "pass1"])
+def test_even_odd_pass_equals_both_matrix_passes(draw, n, shift):
+    """Tolerance 0 against the port's ``_reduced_pass`` and the JAX
+    ``_reduced_pass`` on DEQUANT_CLAMP extremes (every sign pattern of
+    +-32767 / -32768), uniform dequantized values and the full int32 range
+    of pass-1 outputs, where the sums wrap."""
+    import jax.numpy as jnp
+
+    from pim_jpeg_decoder_tpu.ops.decode_kernel import (
+        _reduced_pass as jax_reduced_pass)
+
+    rng = np.random.default_rng(n * 100 + shift)
+    lo, hi = -S.DEQUANT_CLAMP - 1, S.DEQUANT_CLAMP
+    if draw == "extreme":
+        signs = (np.arange(2 ** n)[:, None] >> np.arange(n)) & 1
+        x = np.where(signs == 1, lo, hi).T.astype(np.int32)
+    elif draw == "random":
+        x = rng.integers(lo, hi + 1, (n, 4096), dtype=np.int32)
+    else:
+        x = rng.integers(-2 ** 31, 2 ** 31, (n, 4096), dtype=np.int64
+                         ).astype(np.int32)
+    mat = S.reduced_idct_matrix(n)
+    got = np.stack(_even_odd_pass(list(x), n, shift))
+    port = np.stack([t.numpy() for t in K._reduced_pass(
+        [torch.from_numpy(v) for v in x], mat, shift)])
+    jax_out = np.stack([np.asarray(t) for t in jax_reduced_pass(
+        [jnp.asarray(v) for v in x], mat, shift)])
+    np.testing.assert_array_equal(got, port)
+    np.testing.assert_array_equal(got, jax_out)
+    if draw == "pass1" and n > 1:
+        # The draw reaches the wrap: the int64 sums leave the int32 range.
+        wide = np.asarray(mat, np.int64) @ x.astype(np.int64)
+        assert (np.abs(wide) > 2 ** 31).any()
+
+
+def _chip_smoke():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(K.__file__), os.pardir, os.pardir,
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n, ops", [(1, 1), (2, 4), (4, 14), (8, 50)])
+def test_even_odd_operation_count(n, ops):
+    """chip_smoke's count of one pass's sums in the even/odd form is the
+    model's: multiplies and adds of ``_even_odd_sums`` traced by hand,
+    against the matrix form's n (2n - 1)."""
+    C = _chip_smoke()
+    assert C.reduced_pass_ops(n) == ops
+    assert ops <= n * (2 * n - 1)
+
+
+@pytest.mark.parametrize("scale, wire, nbytes, ops", [
+    (2, 1, 452, 5120), (2, 2, 708, 5120), (4, 1, 244, 1056),
+    (8, 1, 208, 232)])
+def test_scaled_bound_recount(scale, wire, nbytes, ops):
+    """The scaled kernel's bound at 4:2:0, an MCU: bytes (the 32-byte
+    sectors of the rows read, the output, qidx) and operations in the least
+    exact form (the dequantize of the coefficients read, the even/odd
+    IDCTs, BT.601); a launch adds the pool once.  At scale 2 the
+    matrix-form count beside it (8,384 operations, the whole wire)
+    reproduces the 49.20 us bound the first form was held to at M=196,608,
+    int8."""
+    C = _chip_smoke()
+    mode = S.mode_for((2, 2, 3))
+    assert C.scaled_mcu_counts(mode, scale, wire) == (nbytes, ops)
+    assert C.scaled_bound(mode, scale, 1000, wire) == C.bound(
+        1000 * nbytes + 16 * mode.g * 64 * 4, 1000 * ops)
+    if (scale, wire) == (2, 1):
+        assert C.scaled_mcu_counts(mode, 2, 1, matrix_form=True) == (
+            384 + 192 + 4, 8384)
+        old, by = C.scaled_bound(mode, 2, 196608, 1, matrix_form=True)
+        assert by == "operations" and round(old * 1e3, 2) == 49.20
+        new, by = C.scaled_bound(mode, 2, 196608, 1)
+        assert by == "operations" and round(new * 1e3, 2) == 30.05
