@@ -29,11 +29,14 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    last two also equal to the fused RGB kernel; the tensor-core IDCT
    kernels (``csrc/mxu_idct.cu``: mxu2pass with pieces 1 and 2, mxu64) at
    M=16,384 and 1,001 of int16 in [-2048, 2048) within ``MXU_TOLERANCE``
-   of their float32 plain versions (TF32 operands; pieces 2 bit-exact);
+   of their float32 plain versions (TF32 operands; pieces 2 bit-exact),
+   and mxu2pass where its tiles and grid branch (``mxu_edge_cases``: 1,
+   7, 8, 9 and 17 blocks, a last CUDA block with a ragged and idle warps,
+   a ``deq[5:]`` slice, M=196,608);
    the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0; the tile
    kernels (RGB, YCbCr, scaled RGB at scale 2/4/8, and in the colour modes
-   the stacked kernel, also equal to the RGB kernel) in every mode, both
-   wires, at M values around their 32-MCU tile and 16-byte stores
+   the stacked and truerez kernels, also equal to the RGB kernel) in every
+   mode, both wires, at M values around their 32-MCU tile and 16-byte stores
    (``TILE_MS`` and ``EDGE_MS``: 1, 15, 17, 31, 32, 33, 65, 196,608) and on
    a ``coeffs[5:]`` slice of 1,027 MCUs, with extreme blocks and
    out-of-range ``qidx`` entries (a zero quantizer row), tolerance 0; the
@@ -58,7 +61,9 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    tool ``tools.kernel_opt`` (every variant bit-exact, each of its three
    kernels launched); the tools ``tools.mxu_idct_ab`` (the butterfly and
    the three tensor-core variants, each within its tolerance) and
-   ``tools.vlc_bench`` (exact), their kernels launched;
+   ``tools.vlc_bench`` (exact), their kernels launched (the IDCT tool in
+   two runs, mxu2pass4 alone in the second, so that pieces 2 has a launch
+   count of its own);
 4. kernel and plain-version times with CUDA events
    (``utils/devbench.seconds_per_launch``, 10 rotating inputs past the 50
    MB L2; median with min and max), each kernel's bound (the larger of its
@@ -83,8 +88,9 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    M=16,384 and 196,608 on both wires, each against its bound (the scaled
    kernel's counted in the least exact form, the matrix-form count
    beside it); and the registers, shared memory and blocks an SM of the
-   epilogue's, the stage kernels', the scaled and the stacked kernel's
-   instantiations.
+   epilogue's, the stage kernels', the scaled, stacked and truerez
+   kernels' and mxu2pass's instantiations (with SASS counts for truerez
+   at 4:2:0 and for mxu2pass).
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -132,6 +138,10 @@ KERNELS = {
                 "tools/kernel_opt.py:141"),
     "mxu2pass": ("pim_jpeg_decoder_tpu_torch/csrc/mxu_idct.cu",
                  "tools/mxu_idct_ab.py:58"),
+    # mxu2pass with pieces=2: its own instantiation (mxu2pass_kernel<2>),
+    # launched through the same wrapper and counter.
+    "mxu2pass4": ("pim_jpeg_decoder_tpu_torch/csrc/mxu_idct.cu",
+                  "tools/mxu_idct_ab.py:58"),
     "mxu64": ("pim_jpeg_decoder_tpu_torch/csrc/mxu_idct.cu",
               "tools/mxu_idct_ab.py:104"),
     "vlc": ("pim_jpeg_decoder_tpu_torch/csrc/vlc.cu",
@@ -145,7 +155,9 @@ JSON_NAMES = {"raster": "raster_epilogue",
               "memfloor": "kernel_opt_memfloor",
               "truerez": "kernel_opt_chroma_truerez",
               "stacked": "kernel_opt_stacked",
-              "mxu2pass": "mxu_idct_2pass", "mxu64": "mxu_idct_64",
+              "mxu2pass": "mxu_idct_2pass",
+              "mxu2pass4": "mxu_idct_2pass4 (pieces 2)",
+              "mxu64": "mxu_idct_64",
               "vlc": "vlc_symbol_loop"}
 STAGES = ("dequant", "idct", "color")
 KERNEL_OPT_COUNTERS = ("memfloor", "truerez", "stacked")
@@ -468,7 +480,8 @@ def tile_cases(torch, dev, rng, max_err):
     -- in each), and on a ``coeffs[5:]`` slice of 1,027 MCUs (input from
     MCU 5, an output whose rows start off the 16-byte grid): rgb_kernel,
     ycbcr_kernel, rgb_scaled_kernel at scale 2, 4 and 8 and, in the colour
-    modes, rgb_stacked_kernel, which must also equal rgb_kernel."""
+    modes, rgb_stacked_kernel and rgb_truerez_kernel, which must also equal
+    rgb_kernel."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         coeffs_to_device, decode_mcus, decode_mcus_reference,
@@ -484,7 +497,6 @@ def tile_cases(torch, dev, rng, max_err):
                  f"max|err|={err}")
 
     cases = 0
-    stacked, stacked_plain = KERNELS["stacked"]
     for key in sorted(S.MODES):
         mode = S.mode_for(key)
         for wire in (np.int16, np.int8):
@@ -509,16 +521,19 @@ def tile_cases(torch, dev, rng, max_err):
                          f"{what} scale {scale}")
                     cases += 1
                 if mode.ncomp == 3:
-                    got = stacked(x, qi, qp, mode)
-                    same("stacked", got, stacked_plain(x, qi, qp, mode), what)
-                    if not torch.equal(got, decode_mcus(x, qi, qp, mode,
-                                                        raw=True)):
-                        fail(f"stacked kernel != rgb kernel: {what}")
-                    cases += 2
+                    fused = decode_mcus(x, qi, qp, mode, raw=True)
+                    for name in ("stacked", "truerez"):
+                        kernel, plain = KERNELS[name]
+                        got = kernel(x, qi, qp, mode)
+                        same(name, got, plain(x, qi, qp, mode), what)
+                        if not torch.equal(got, fused):
+                            fail(f"{name} kernel != rgb kernel: {what}")
+                        cases += 2
                 del x, qi
     torch.cuda.empty_cache()
-    return cases, (f"rgb/ycbcr/scaled 2,4,8 x 5 modes and stacked (also == "
-                   f"rgb kernel) x 4 colour modes x i16/i8 x M="
+    return cases, (f"rgb/ycbcr/scaled 2,4,8 x 5 modes and stacked and "
+                   f"truerez (each also == rgb kernel) x 4 colour modes x "
+                   f"i16/i8 x M="
                    f"{sorted(set(TILE_MS) | set(EDGE_MS))} and a coeffs[5:] "
                    f"slice of 1,027 MCUs, extreme blocks and out-of-range "
                    f"qidx (Q, -1: a zero quantizer row)")
@@ -527,7 +542,9 @@ def tile_cases(torch, dev, rng, max_err):
 def mxu_cases(torch, dev, rng, max_err) -> str:
     """The tensor-core IDCT kernels against their float32 plain versions
     on the card, every ``pieces``, at M=16,384 and an odd M=1,001 of the
-    tool's draw (int16 in [-2048, 2048)), within ``MXU_TOLERANCE``."""
+    tool's draw (int16 in [-2048, 2048)), within ``MXU_TOLERANCE``; then
+    ``mxu2pass`` (pieces 1 and 2) where its tiles and grid branch
+    (``mxu_edge_cases``)."""
     from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
 
     fns = mxu_idct_ab.variant_fns()
@@ -535,23 +552,87 @@ def mxu_cases(torch, dev, rng, max_err) -> str:
     for m in (16384, 1001):
         deq = torch.from_numpy(rng.integers(
             -2048, 2048, (m, 6, 64)).astype(np.int16)).to(dev)
-        for name, (tol, share_tol) in MXU_TOLERANCE.items():
+        for name in MXU_TOLERANCE:
             kernel, plain = fns[name]
-            got, want = kernel(deq), plain(deq)
-            torch.cuda.synchronize()
-            d = mxu_idct_ab.difference(got, want)
-            counter = mxu_idct_ab.VARIANTS[name]
-            max_err[counter] = max(max_err[counter], d["max_abs_diff"])
-            if (got.shape != want.shape or d["max_abs_diff"] > tol
-                    or d["share_diff"] > share_tol):
-                fail(f"{name} kernel vs its float32 plain version at M={m}: "
-                     f"max|diff| {d['max_abs_diff']} (at most {tol}), share "
-                     f"{d['share_diff']:.5f} (at most {share_tol})")
+            d = mxu_difference(torch, kernel(deq), plain(deq), name,
+                               f"M={m}", max_err)
             notes.append(f"{name} M={m}: max|diff| {d['max_abs_diff']}, "
                          f"share {d['share_diff']:.5f}")
     return ("mxu_idct kernels (TF32) vs float32 plain versions, tool's draw "
             "(tolerance max|diff| <= 2 in <= 4% / 0 / <= 2 in <= 3%): "
-            + "; ".join(notes))
+            + "; ".join(notes) + "; " + mxu_edge_cases(torch, dev, rng,
+                                                       max_err))
+
+
+def mxu_difference(torch, got, want, name, what, max_err,
+                   check_share=True) -> dict:
+    """``tools.mxu_idct_ab.difference`` of a kernel's output and its plain
+    version's, held to ``MXU_TOLERANCE[name]`` (the share only where
+    ``check_share``); the largest difference goes into ``max_err``."""
+    from pim_jpeg_decoder_tpu_torch.tools.mxu_idct_ab import difference
+
+    torch.cuda.synchronize()
+    tol, share_tol = MXU_TOLERANCE[name]
+    d = difference(got, want)
+    max_err[name] = max(max_err[name], d["max_abs_diff"])
+    if (got.shape != want.shape or d["max_abs_diff"] > tol
+            or (check_share and d["share_diff"] > share_tol)):
+        fail(f"{name} kernel vs its float32 plain version at {what}: "
+             f"max|diff| {d['max_abs_diff']} (at most {tol}), share "
+             f"{d['share_diff']:.5f} (at most {share_tol})")
+    return d
+
+
+def mxu_edge_cases(torch, dev, rng, max_err) -> str:
+    """``mxu2pass`` with pieces 1 and 2 against its plain version, within
+    ``MXU_TOLERANCE``, where its design branches: 1, a tile less one, a
+    tile, a tile and one, two tiles and one 8x8 blocks (``MXU2PASS_TILE``
+    blocks a tile, ``[n, 1, 64]``); three CUDA blocks and a last one whose
+    first warp is full, whose second is ragged and whose others have no
+    blocks (``TILES_PER_WARP`` tiles a warp); a ``deq[5:]`` slice of 1,006
+    MCUs of 6 blocks; and M=196,608 (1,179,648 blocks).  The largest
+    difference is held in every case; the share of samples that differ, a
+    rate, over the small cases pooled and in the large one (a case of 64
+    samples can pass 4% by chance)."""
+    from pim_jpeg_decoder_tpu_torch.ops.mxu_idct import (
+        MXU2PASS_TILE, TILES_PER_WARP, WARPS_PER_BLOCK)
+    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
+
+    fns = mxu_idct_ab.variant_fns()
+    tile = MXU2PASS_TILE
+    notes = []
+    for name, pieces in (("mxu2pass", 1), ("mxu2pass4", 2)):
+        kernel, plain = fns[name]
+        per_warp = tile * TILES_PER_WARP[pieces]
+        ragged = 3 * WARPS_PER_BLOCK * per_warp + per_warp + tile // 2 + 1
+        shapes = [(n, 1, 64) for n in (1, tile - 1, tile, tile + 1,
+                                       2 * tile + 1, ragged)]
+        shapes += ["slice", (196608, 6, 64)]
+        differ = total = 0
+        for shape in shapes:
+            n = (1006, 6, 64) if shape == "slice" else shape
+            deq = torch.from_numpy(rng.integers(-2048, 2048, n).astype(
+                np.int16)).to(dev)
+            if shape == "slice":
+                deq = deq[5:]
+            large = deq.numel() >= 64 * 98304
+            d = mxu_difference(torch, kernel(deq), plain(deq), name,
+                               f"{shape} blocks", max_err, check_share=large)
+            if not large:
+                differ += round(d["share_diff"] * deq.numel())
+                total += deq.numel()
+            del deq
+        share = differ / total
+        if share > MXU_TOLERANCE[name][1]:
+            fail(f"{name}: {share:.5f} of the small edge cases' samples "
+                 f"differ from the plain version (at most "
+                 f"{MXU_TOLERANCE[name][1]})")
+        notes.append(f"{name} at {len(shapes)} edge shapes (blocks 1, "
+                     f"{tile - 1}, {tile}, {tile + 1}, {2 * tile + 1}, "
+                     f"{ragged}, a [5:] slice, M=196608): max|diff| <= "
+                     f"{max_err[name]}, small cases' share {share:.5f}")
+    torch.cuda.empty_cache()
+    return "; ".join(notes)
 
 
 def vlc_cases(torch, dev, max_err) -> str:
@@ -1247,35 +1328,46 @@ def phase_ab_tools() -> dict:
 
     tolerance = {"butterfly": (0, 0.0), **MXU_TOLERANCE}
     found = {}
-    for tool, counters in ((mxu_idct_ab, ("idct", "mxu2pass", "mxu64")),
-                           (vlc_bench, ("vlc",))):
+    # The IDCT tool in two runs, so that mxu2pass with pieces 2 (the same
+    # wrapper and counter as pieces 1) has a launch count of its own.
+    idct_rest = [v for v in mxu_idct_ab.VARIANTS if v != "mxu2pass4"]
+    records = {}
+    for tool, argv, counters in (
+            (mxu_idct_ab, idct_rest, {"idct": "idct", "mxu2pass": "mxu2pass",
+                                      "mxu64": "mxu64"}),
+            (mxu_idct_ab, ["mxu2pass4"], {"mxu2pass4": "mxu2pass"}),
+            (vlc_bench, [], {"vlc": "vlc"})):
         name = tool.__name__.rsplit(".", 1)[-1]
         out = io.StringIO()
         reset_launch_counts()
         t0 = time.monotonic()
         with contextlib.redirect_stdout(out):
-            rc = tool.main([])
+            rc = tool.main(argv)
         wall = time.monotonic() - t0
         counts = launch_counts()
         if rc != 0:
-            fail(f"tools.{name} exited {rc}")
+            fail(f"tools.{name} {' '.join(argv)} exited {rc}")
         record = json.loads(out.getvalue().splitlines()[-1])
-        if min(counts[k] for k in counters) < 1 or counts["plain_on_cuda"]:
-            fail(f"tools.{name} did not go through its kernels alone: "
-                 f"{counts}")
+        if (min(counts[c] for c in counters.values()) < 1
+                or counts["plain_on_cuda"]):
+            fail(f"tools.{name} {' '.join(argv)} did not go through its "
+                 f"kernels alone: {counts}")
         if tool is mxu_idct_ab:
-            if sorted(record) != sorted(mxu_idct_ab.VARIANTS):
-                fail(f"tools.mxu_idct_ab ran {sorted(record)}")
+            records.update(record)
             for variant, r in record.items():
                 tol, share_tol = tolerance[variant]
                 if r["max_abs_diff"] > tol or r["share_diff"] > share_tol:
                     fail(f"tools.mxu_idct_ab: {variant} outside its "
                          f"tolerance: {r}")
-        found.update({k: counts[k] for k in counters if k != "idct"})
-        print(f"[3 slice] tools.{name}: exit 0 in {wall:.1f} s; launches "
-              + " ".join(f"{k}={counts[k]}" for k in (*counters,
-                                                        "plain_on_cuda"))
-              + f"; record {json.dumps(record)}", flush=True)
+        found.update({k: counts[c] for k, c in counters.items()
+                      if k != "idct"})
+        print(f"[3 slice] tools.{name} {' '.join(argv) or '(all)'}: exit 0 "
+              f"in {wall:.1f} s; launches "
+              + " ".join(f"{k}={counts[c]}" for k, c in counters.items())
+              + f" plain_on_cuda={counts['plain_on_cuda']}; record "
+              f"{json.dumps(record)}", flush=True)
+    if sorted(records) != sorted(mxu_idct_ab.VARIANTS):
+        fail(f"tools.mxu_idct_ab ran {sorted(records)}")
     return found
 
 
@@ -1565,7 +1657,7 @@ def sass_counts(lib_path: str) -> dict:
     return counts
 
 
-def tile_resources(torch, card: str, medians: dict) -> None:
+def tile_resources(torch, card: str, medians: dict, sass: dict) -> None:
     """Registers (ptxas, ``nvcc.log``), dynamic shared memory and blocks an
     SM holds (the occupancy calculator) of each full-scale tile kernel,
     and its SASS: instructions, of which integer-ALU, IMAD and memory, per
@@ -1579,12 +1671,10 @@ def tile_resources(torch, card: str, medians: dict) -> None:
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         TILE_MCUS, TILE_THREADS, tile_occupancy)
 
-    lib = os.path.join(_build.build_dir(), _build.LIB_NAME)
     with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
         log = f.read()
     regs = dict(re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) "
                            r"registers", log, flags=re.S))
-    sass = sass_counts(lib)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
     pattern = re.compile(r"\d+(rgb|ycbcr)_kernelI([as])((?:Li\d+E)+)Lb1E")
@@ -1639,23 +1729,30 @@ def tile_resources(torch, card: str, medians: dict) -> None:
               f"{issue[1]:.2f} us at M=196608 | {card}", flush=True)
 
 
-def redesign_resources(torch, card: str) -> None:
+def redesign_resources(torch, card: str, sass: dict) -> None:
     """Registers (ptxas, ``nvcc.log``) of every instantiation of the banded
     raster epilogue, the dequantize, IDCT and colour stage kernels, the
-    scaled decode kernel and the stacked kernel, with the shared memory and
-    blocks an SM holds (the occupancy calculator) of the 4:2:0 epilogue and
-    dequantize ones that phase 4 times and of every IDCT, colour, scaled
-    and stacked one (the IDCT kernel has one instantiation; the colour
-    kernel one a mode and store form; the scaled kernel one a mode, wire,
-    scale and store form, the stacked kernel one a colour mode, wire and
-    store form).  Their layouts' bank and alignment claims are
-    static_asserts in the CUDA source, so a build that passes holds them."""
+    scaled decode kernel, the stacked and truerez kernels and mxu2pass,
+    with the shared memory and blocks an SM holds (the occupancy
+    calculator) of the 4:2:0 epilogue and dequantize ones that phase 4
+    times and of every IDCT, colour, scaled, stacked, truerez and mxu2pass
+    one (the IDCT kernel has one instantiation; the colour kernel one a
+    mode and store form; the scaled kernel one a mode, wire, scale and
+    store form, the stacked and truerez kernels one a colour mode, wire and
+    store form, mxu2pass one a ``pieces``), and the SASS instructions of
+    the 4:2:0 truerez ones and of mxu2pass (``sass``: ``sass_counts``).
+    Their layouts' bank and alignment claims are static_asserts in the CUDA
+    source, so a build that passes holds them."""
     from pim_jpeg_decoder_tpu_torch.ops import _build
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         raster_occupancy, tile_occupancy)
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        TILE_MCUS, TILE_THREADS)
     from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import (
-        stacked_occupancy)
+        stacked_occupancy, truerez_occupancy)
+    from pim_jpeg_decoder_tpu_torch.ops.mxu_idct import (
+        MXU2PASS_TILE, TILES_PER_WARP, mxu2pass_occupancy)
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_occupancy, dequant_occupancy, idct_occupancy)
 
@@ -1672,9 +1769,13 @@ def redesign_resources(torch, card: str) -> None:
     scaled = re.compile(r"rgb_scaled_kernelI([as])Li(\d)ELi(\d)ELi(\d)ELi(\d)E"
                         r"Lb([01])E")
     stacked = re.compile(r"rgb_stacked_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
+    truerez = re.compile(r"rgb_truerez_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
+    mxu2pass = re.compile(r"mxu2pass_kernelILi([12])E")
     mode = S.mode_for((2, 2, 3))
     found = {"epilogue": [], "dequant": [], "idct": [], "color": [],
-             "scaled": [], "stacked": []}
+             "scaled": [], "stacked": [], "truerez": [], "mxu2pass": []}
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for mangled, regs in entries:
         hit = epi.search(mangled)
         if hit:
@@ -1712,6 +1813,44 @@ def redesign_resources(torch, card: str) -> None:
                   f"({'8-byte' if vec8 else 'byte'} stores): {regs} "
                   f"registers, {smem} B static shared memory, {blocks} "
                   f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
+        hit = mxu2pass.search(mangled)
+        if hit:
+            pieces = int(hit.group(1))
+            blocks, smem, grid = mxu2pass_occupancy(pieces, 98304)
+            ops = sass[mangled]
+            total = sum(ops.values())
+            found["mxu2pass"].append((int(regs), blocks))
+            per_block = total / (MXU2PASS_TILE * TILES_PER_WARP[pieces])
+            print(f"[4 times] mxu2pass_kernel<{pieces}>: {regs} registers, "
+                  f"{smem} B static shared memory, {blocks} blocks/SM "
+                  f"({4 * blocks} warps), grid {grid} at 98,304 blocks; SASS "
+                  f"{total} instructions ({ops['HMMA']} HMMA, "
+                  f"{sum(ops[o] for o in SASS_MEM)} memory, {ops['BRA']} "
+                  f"branches), at most {per_block:.1f} warp instructions a "
+                  f"block (a warp runs each at most once for its "
+                  f"{MXU2PASS_TILE * TILES_PER_WARP[pieces]} blocks): "
+                  f"{per_block * 98304 / (4 * sms * clock) * 1e6:.2f} us of "
+                  f"issue at M=16384 | {card}", flush=True)
+        hit = truerez.search(mangled)
+        if hit:
+            wire = 1 if hit.group(1) == "a" else 2
+            key = (int(hit.group(2)), int(hit.group(3)), 3)
+            vec16 = hit.group(4) == "1"
+            blocks, smem = truerez_occupancy(wire, S.mode_for(key), vec16)
+            found["truerez"].append((int(regs), blocks))
+            note = ""
+            if key == (2, 2, 3):
+                total = sum(sass[mangled].values())
+                per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
+                note = (f"; SASS {total} instructions, {per_mcu:.1f} warp "
+                        f"instructions an MCU: "
+                        f"{per_mcu * 16384 / (4 * sms * clock) * 1e6:.2f} us "
+                        f"of issue at M=16384")
+            print(f"[4 times] rgb_truerez_kernel {S.mode_for(key).name} "
+                  f"int{8 * wire} ({'16-byte' if vec16 else 'byte'} stores): "
+                  f"{regs} registers, {smem} B dynamic shared memory, "
+                  f"{blocks} blocks/SM ({blocks * 8} warps){note} | {card}",
+                  flush=True)
         hit = scaled.search(mangled) or stacked.search(mangled)
         if hit:
             kind = "scaled" if hit.re is scaled else "stacked"
@@ -1736,7 +1875,7 @@ def redesign_resources(torch, card: str) -> None:
                   f"registers, {smem} B dynamic shared memory, {blocks} "
                   f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
     want = {"epilogue": 32, "dequant": 8, "idct": 1, "color": 10,
-            "scaled": 60, "stacked": 16}
+            "scaled": 60, "stacked": 16, "truerez": 16, "mxu2pass": 2}
     if {k: len(v) for k, v in found.items()} != want:
         names = ", ".join(f"{len(v)} {k}" for k, v in found.items())
         fail(f"nvcc.log names {names} instantiations, expected {want}")
@@ -1748,13 +1887,16 @@ def redesign_resources(torch, card: str) -> None:
           f"{found['idct'][0]} registers; color_stage_kernel: 10 (5 modes x "
           f"8-byte/byte stores), {min(found['color'])}-"
           f"{max(found['color'])} registers | {card}", flush=True)
-    for kind, count in (("scaled", "60 (5 modes x 2 wires x scale 2/4/8 x "
-                                   "16-byte/byte stores)"),
-                        ("stacked", "16 (4 colour modes x 2 wires x "
-                                    "16-byte/byte stores)")):
-        regs = [r for r, _ in found[kind]]
-        blocks = [b for _, b in found[kind]]
-        print(f"[4 times] rgb_{kind}_kernel: {count}, {min(regs)}-"
+    for kind, count in (("rgb_scaled", "60 (5 modes x 2 wires x scale "
+                                       "2/4/8 x 16-byte/byte stores)"),
+                        ("rgb_stacked", "16 (4 colour modes x 2 wires x "
+                                        "16-byte/byte stores)"),
+                        ("rgb_truerez", "16 (4 colour modes x 2 wires x "
+                                        "16-byte/byte stores)"),
+                        ("mxu2pass", "2 (pieces 1, 2)")):
+        regs = [r for r, _ in found[kind.replace("rgb_", "")]]
+        blocks = [b for _, b in found[kind.replace("rgb_", "")]]
+        print(f"[4 times] {kind}_kernel: {count}, {min(regs)}-"
               f"{max(regs)} registers, {min(blocks)}-{max(blocks)} "
               f"blocks/SM | {card}", flush=True)
 
@@ -1983,8 +2125,8 @@ def phase_ab_times(torch, dev, card: str, times: dict) -> None:
         b = (bound(nbytes, blocks * IDCT_BLOCK_OPS) if name == "butterfly"
              else bound(nbytes, flops[name], TF32_FLOPS))
         lib = library[name]
-        if name in ("mxu2pass", "mxu64"):
-            times[name] = timing(k, p, b, lib[0])
+        if name != "butterfly":
+            times[name] = timing(k, p, b, lib[0] if lib else None)
         lib_note = (f"; torch.matmul yardstick (TF32, products only"
                     f"{', both passes' if name == 'mxu2pass' else ''}) "
                     f"{us_band(lib)}" if lib else "")
@@ -2114,9 +2256,11 @@ def main() -> int:
         phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
                           times)
         phase_ab_times(torch, dev, card, times)
-        tile_resources(torch, card, tile_times(torch, dev, card))
+        from pim_jpeg_decoder_tpu_torch.ops import _build
+        sass = sass_counts(os.path.join(_build.build_dir(), _build.LIB_NAME))
+        tile_resources(torch, card, tile_times(torch, dev, card), sass)
         scaled_stacked_times(torch, dev, card)
-        redesign_resources(torch, card)
+        redesign_resources(torch, card, sass)
         kernel_bounds(times, card)
 
     kernels = [{

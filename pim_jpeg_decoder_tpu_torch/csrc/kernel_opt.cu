@@ -17,10 +17,9 @@
 //
 // What bounds them on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4;
 // PERF.md): the floor, bytes (a 16,384-MCU 4:2:0 launch reads 12.6 MB of
-// int16 wire and writes 12.6 MB of RGB, in 19.1-19.3 us); truerez, like
-// rgb_kernel's first form, its per-thread decode work (30.3 [34.4] us
-// int8 [int16]); stacked, like the tiled rgb_kernel, one wave's latency
-// at M=16,384 and issue at M=196,608.
+// int16 wire and writes 12.6 MB of RGB, in 19.1-19.3 us); truerez and
+// stacked, like the tiled rgb_kernel, one wave's latency at M=16,384 and
+// issue at M=196,608.
 //   - memfloor_kernel is rgb_kernel's first form (a thread per 8x8
 //     block; decode_kernel.cu now holds a tiled redesign) with the decode
 //     taken out and its memory traffic left in: thread (slot s, MCU m)
@@ -32,13 +31,32 @@
 //     byte of a sum depends on the low bytes of its terms only).  It keeps
 //     measuring that access pattern (no wider stores), so the tiled
 //     rgb_kernel can beat it.
-//   - rgb_truerez_kernel: rgb_kernel computes the three colour terms for
-//     every output pixel; at 4:2:0 each chroma sample's terms four times.
-//     Here the block computes each chroma sample's terms once into shared
-//     memory (int16: |term| <= 227 for samples in [-128, 127]), and each
-//     pixel adds y + 128 and its sample's terms through rgb_kernel's
-//     chroma_pix index.  24 KB of samples plus 24 KB of terms: the
-//     48 KB static limit at 4:2:0.
+//   - rgb_truerez_kernel keeps the TPU kernel's idea (each chroma
+//     sample's three BT.601 terms computed once, at chroma resolution,
+//     into a buffer, then added to every luma pixel the sample serves) on
+//     rgb_kernel's tile: load_tile and decode_tile as rgb_kernel runs
+//     them, then, after one __syncthreads, a terms step in which lane j
+//     computes chroma pixel j / 4 of 8 MCUs (chroma_terms) into int16 rows
+//     [3][64][TILE_MCUS] (|term| <= 227 for samples in [-128, 127]) in
+//     the transpose scratch, idle once decode_tile returns (12,288 of its
+//     13,312 B; 16-byte chunks XOR-swizzled by chroma pixel, so the terms
+//     step's writes and the store's reads hit 32 banks without padding:
+//     truerez_conflict_free), so shared memory and blocks an SM stay
+//     rgb_kernel's.  After a second __syncthreads each lane writes 16
+//     bytes of one luma row into each plane: 16 luma bytes, its chroma
+//     pixel's 2 x 16 bytes of terms a plane, two pixels a DPX instruction
+//     (__viaddmin_s16x2_relu: max(min(y + 128 + t, 255), 0)); byte stores
+//     through store_rgb when M % 16 != 0.  The first form (a thread per
+//     8x8 block, 64-MCU blocks of 384 threads, 48 KB of static shared
+//     memory, byte stores) took 30.3 [34.4] us int8 [int16] at 4:2:0
+//     M=16,384; this one 19.70-19.81 [21.55-21.68] us, and 159.3-159.5 us
+//     at M=196,608 int16 (was 344.7-344.9), against rgb_kernel's 19.03-19.10
+//     [20.88-20.90] and 156.4 in the same runs (tools/decode_ab.py, H100
+//     80GB HBM3, 700 W): 2-4% slower than rgb_kernel's terms in
+//     registers with 8-byte stores, though it issues a sixth fewer
+//     instructions (376.8 against 452.5 warp instructions an MCU at 4:2:0
+//     int8): the terms step is a phase of its own between two barriers.
+//     48-63 registers, 4-5 blocks an SM, rgb_kernel's shared memory.
 //   - rgb_stacked_kernel keeps the experiment (the GPU form of the TPU's
 //     [gy, 8, T] operands: all gy luma blocks of an MCU in one unrolled
 //     chain a lane) on rgb_kernel's tile machinery (decode_tile.cuh): a
@@ -62,7 +80,7 @@
 //     four chains a lane do not lift one wave off its latency floor, and
 //     the lost warps cost more once waves overlap.  20.1 [21.6] us at
 //     4:2:0 M=16,384 int8 [int16], was 47.3 [49.0].
-// memfloor and truerez are the simple, exact first forms.
+// memfloor is the simple, exact first form.
 
 #include <type_traits>
 
@@ -104,59 +122,220 @@ memfloor_kernel(const T* __restrict__ coeffs, uint8_t* __restrict__ out,
       });
 }
 
-template <typename T, int H, int V>
-__global__ void __launch_bounds__((H * V + 2) * TILE)
+// rgb_truerez_kernel's chroma terms: int16 [3][64 chroma pixels][TILE_MCUS]
+// (R, G, B) in the transpose scratch of TileLayout (idle once decode_tile
+// returns), TILE_MCUS * 2 = 64 bytes a chroma pixel, as four 16-byte chunks
+// of 8 MCUs.  Chunk q of chroma pixel c sits at chunk q ^ ((c >> 1) & 3) of
+// its row, so the 16-byte term reads of a quarter warp (8 luma rows of one
+// column, or their 2-4 chroma pixels) and the terms step's writes hit 32
+// banks without padding (truerez_conflict_free).
+constexpr int TERM_ROW = TILE_MCUS * 2;             // bytes a chroma pixel
+constexpr int TERM_PLANE = 64 * TERM_ROW;           // bytes a term plane
+
+// The 16-byte unit (from the scratch's start) of chunk q of plane k's
+// chroma pixel c.
+__host__ __device__ constexpr int term_unit(int k, int c, int q) {
+  return (k * TERM_PLANE + c * TERM_ROW) / VEC + (q ^ ((c >> 1) & 3));
+}
+
+// chroma_pix (decode_common.cuh) of luma row `row` = slot * 64 + pixel, for
+// the layout claims on the host as well.
+template <int H, int V>
+__host__ __device__ constexpr int truerez_chroma(int row) {
+  const int sl = row >> 6, px = (row >> 3) & 7, py = row & 7;
+  return ((sl % H) * (8 / H) + px / H) * 8 + (sl / H) * (8 / V) + py / V;
+}
+
+// Piece j of the 16-byte store (GY * 64 rows of two 16-byte halves): the 8
+// lanes of a quarter warp take 8 consecutive rows and one half, so their
+// luma reads (rows SAMPLE_ROW = 3 * 16 bytes apart) hit 32 banks, and the
+// two halves of a row go out in one warp store.
+__host__ __device__ constexpr int piece_row(int j) {
+  return (j >> 4) * 8 + (j & 7);
+}
+__host__ __device__ constexpr int piece_half(int j) { return (j >> 3) & 1; }
+
+// The claims, for a tile of TILE_THREADS lanes: the terms fit the idle
+// transpose scratch; the terms step's 16-byte writes (lane j: chroma pixel
+// j / 4, chunk j % 4) and, in mode H x V, each of the store's two 16-byte
+// term reads and its luma read fall on 32 banks in every quarter warp.
+template <int H, int V>
+constexpr bool truerez_conflict_free() {
+  using L = TileLayout<int16_t, H * V + 2>;
+  if (3 * TERM_PLANE > L::kCoeffs - L::kXpose) return false;
+  if (TILE_THREADS != 64 * (TILE_MCUS / 8)) return false;
+  for (int k = 0; k < 3; ++k) {
+    for (int j0 = 0; j0 < TILE_THREADS; j0 += 8) {
+      int w[8] = {};
+      for (int l = 0; l < 8; ++l) {
+        w[l] = 4 * term_unit(k, (j0 + l) >> 2, (j0 + l) & 3);
+      }
+      if (!phase_conflict_free(w, 8, 4)) return false;
+    }
+  }
+  for (int j0 = 0; j0 < H * V * 64 * 2; j0 += 8) {
+    int luma[8] = {};
+    for (int l = 0; l < 8; ++l) {
+      luma[l] = (piece_row(j0 + l) * SAMPLE_ROW + piece_half(j0 + l) * VEC) / 4;
+    }
+    if (!phase_conflict_free(luma, 8, 4)) return false;
+    for (int k = 0; k < 3; ++k) {
+      for (int q = 0; q < 2; ++q) {
+        int w[8] = {};
+        for (int l = 0; l < 8; ++l) {
+          const int c = truerez_chroma<H, V>(piece_row(j0 + l));
+          w[l] = 4 * term_unit(k, c, 2 * piece_half(j0 + l) + q);
+        }
+        if (!phase_conflict_free(w, 8, 4)) return false;
+      }
+    }
+  }
+  return true;
+}
+
+// The terms step: lane j computes the three terms of chroma pixel j / 4 of
+// the tile's MCUs 8 (j % 4) .. + 7 once (chroma_terms, bt601's arithmetic:
+// |term| <= 227 for samples in [-128, 127]) and writes them as three
+// 16-byte chunks.
+template <int GY>
+__device__ __forceinline__ void truerez_terms(const int8_t* samples,
+                                              uint8_t* terms) {
+  const int c = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const uint2 cb = *reinterpret_cast<const uint2*>(
+      samples + (GY * 64 + c) * SAMPLE_ROW + q * 8);
+  const uint2 cr = *reinterpret_cast<const uint2*>(
+      samples + ((GY + 1) * 64 + c) * SAMPLE_ROW + q * 8);
+  uint32_t w[3][4];
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    int32_t t0[3], t1[3];
+    chroma_terms(sample8_at(cb, e), sample8_at(cr, e), t0[0], t0[1], t0[2]);
+    chroma_terms(sample8_at(cb, e + 1), sample8_at(cr, e + 1), t1[0], t1[1],
+                 t1[2]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w[k][e / 2] = (static_cast<uint32_t>(t0[k]) & 0xffffu) |
+                    (static_cast<uint32_t>(t1[k]) << 16);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    *reinterpret_cast<int4*>(terms + term_unit(k, c, q) * VEC) =
+        make_int4(static_cast<int>(w[k][0]), static_cast<int>(w[k][1]),
+                  static_cast<int>(w[k][2]), static_cast<int>(w[k][3]));
+  }
+}
+
+// The term of plane k for chroma pixel c of the tile's MCU mj.
+__device__ __forceinline__ int32_t term_at(const uint8_t* terms, int k, int c,
+                                           int mj) {
+  return reinterpret_cast<const int16_t*>(
+      terms + term_unit(k, c, mj >> 3) * VEC)[mj & 7];
+}
+
+// 16 luma bytes (y + 128, as level_shift16 gives them) plus 16 int16 terms,
+// clamped to [0, 255], as 16 bytes: two pixels a DPX instruction
+// (max(min(y + t, 255), 0) per 16-bit half), the bytes widened to 16-bit
+// halves and narrowed back with byte permutes.
+__device__ __forceinline__ int4 add_terms16(const uint32_t (&y2)[8],
+                                            const int4& t_lo,
+                                            const int4& t_hi) {
+  const uint32_t t[8] = {
+      static_cast<uint32_t>(t_lo.x), static_cast<uint32_t>(t_lo.y),
+      static_cast<uint32_t>(t_lo.z), static_cast<uint32_t>(t_lo.w),
+      static_cast<uint32_t>(t_hi.x), static_cast<uint32_t>(t_hi.y),
+      static_cast<uint32_t>(t_hi.z), static_cast<uint32_t>(t_hi.w)};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = __viaddmin_s16x2_relu(y2[2 * i], t[2 * i], 0x00ff00ffu);
+    const uint32_t b =
+        __viaddmin_s16x2_relu(y2[2 * i + 1], t[2 * i + 1], 0x00ff00ffu);
+    o[i] = __byte_perm(a, b, 0x6420);
+  }
+  return make_int4(static_cast<int>(o[0]), static_cast<int>(o[1]),
+                   static_cast<int>(o[2]), static_cast<int>(o[3]));
+}
+
+// The store with every output row 16-byte aligned: lane piece j writes 16
+// bytes of luma row piece_row(j) into each plane, its chroma pixel's terms
+// read from the scratch.  valid is a multiple of 16 here (M % 16 == 0).
+template <int H, int V>
+__device__ __forceinline__ void store_truerez16(const int8_t* samples,
+                                                const uint8_t* terms,
+                                                uint8_t* __restrict__ out,
+                                                long long m0,
+                                                long long num_mcus,
+                                                int valid) {
+  constexpr int kPieces = H * V * 64 * 2;
+  constexpr int kRounds = (kPieces + TILE_THREADS - 1) / TILE_THREADS;
+  const size_t plane = static_cast<size_t>(H * V) * 64 * num_mcus;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int j = r * TILE_THREADS + threadIdx.x;
+    const int row = piece_row(j), half = piece_half(j);
+    if (j >= kPieces || half * VEC >= valid) continue;
+    const int4 y = level_shift16(load16(samples + row * SAMPLE_ROW +
+                                        half * VEC));
+    const uint32_t w[4] = {static_cast<uint32_t>(y.x),
+                           static_cast<uint32_t>(y.y),
+                           static_cast<uint32_t>(y.z),
+                           static_cast<uint32_t>(y.w)};
+    uint32_t y2[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      y2[2 * i] = __byte_perm(w[i], 0u, 0x4140);
+      y2[2 * i + 1] = __byte_perm(w[i], 0u, 0x4342);
+    }
+    const int c = truerez_chroma<H, V>(row);
+    uint8_t* dst = out + static_cast<size_t>(row) * num_mcus + m0 + half * VEC;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int4 t_lo = *reinterpret_cast<const int4*>(
+          terms + term_unit(k, c, 2 * half) * VEC);
+      const int4 t_hi = *reinterpret_cast<const int4*>(
+          terms + term_unit(k, c, 2 * half + 1) * VEC);
+      *reinterpret_cast<int4*>(dst + k * plane) = add_terms16(y2, t_lo, t_hi);
+    }
+  }
+}
+
+// rgb_kernel's output with the colour terms at chroma resolution, on
+// rgb_kernel's tile (decode_tile.cuh): load_tile and decode_tile as
+// rgb_kernel runs them, then the terms step into the idle transpose
+// scratch, then 16-byte row stores of each plane (VEC16), or store_rgb's
+// byte stores, which also mask the ragged last tile.
+template <typename T, int H, int V, bool VEC16>
+__global__ void __launch_bounds__(TILE_THREADS, TILE_MIN_BLOCKS)
 rgb_truerez_kernel(const T* __restrict__ coeffs,
                    const int32_t* __restrict__ qidx,
                    const int32_t* __restrict__ qpool, int num_q,
                    uint8_t* __restrict__ out, long long num_mcus) {
   constexpr int GY = H * V;
-  constexpr int G = GY + 2;
-  __shared__ int8_t samples[G * 64 * TILE];   // [slot][pixel][MCU]
-  __shared__ int16_t terms[3 * 64 * TILE];    // [R, G, B][chroma pixel][MCU]
-
-  const int ml = threadIdx.x % TILE;
-  const long long m0 = static_cast<long long>(blockIdx.x) * TILE;
-  if (m0 + ml < num_mcus) {
-    const int s = threadIdx.x / TILE;
-    uint32_t deq[64];
-    int32_t spat[64];
-    dequant_block<T, G>(coeffs, qidx, qpool, num_q, m0 + ml, s, deq);
-    idct_block(deq, spat);
-#pragma unroll
-    for (int k = 0; k < 64; ++k) {
-      samples[(s * 64 + k) * TILE + ml] = static_cast<int8_t>(spat[k]);
-    }
-  }
+  using L = TileLayout<T, GY + 2>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const long long m0 = static_cast<long long>(blockIdx.x) * TILE_MCUS;
+  const int valid = tile_valid(m0, num_mcus);
+  load_tile<T, GY + 2>(coeffs, qidx, num_q, m0, valid, smem);
+  decode_tile<T, GY + 2>(qpool, smem);
   __syncthreads();
-
-  // The terms of each chroma sample, once (j = chroma pixel * TILE + MCU).
-  const long long left = num_mcus - m0;
-  for (int j = threadIdx.x; j < 64 * TILE; j += G * TILE) {
-    if (j % TILE >= left) continue;
-    const uint32_t cb = static_cast<uint32_t>(
-        static_cast<int32_t>(samples[GY * 64 * TILE + j]));
-    const uint32_t cr = static_cast<uint32_t>(
-        static_cast<int32_t>(samples[(GY + 1) * 64 * TILE + j]));
-    terms[j] = static_cast<int16_t>(
-        descale_color(static_cast<uint32_t>(FIX_CR_R) * cr));
-    terms[64 * TILE + j] = static_cast<int16_t>(
-        descale_color(static_cast<uint32_t>(FIX_CB_G) * cb +
-                      static_cast<uint32_t>(FIX_CR_G) * cr));
-    terms[2 * 64 * TILE + j] = static_cast<int16_t>(
-        descale_color(static_cast<uint32_t>(FIX_CB_B) * cb));
-  }
+  const int8_t* samples = reinterpret_cast<const int8_t*>(smem + L::kSamples);
+  uint8_t* terms = smem + L::kXpose;
+  truerez_terms<GY>(samples, terms);
   __syncthreads();
-
-  store_rgb<GY, 64, TILE, G * TILE>(
-      out, m0, num_mcus,
-      [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
-        const int32_t y128 = samples[(sl * 64 + pix) * TILE + mj] + 128;
-        const int c = chroma_pix<H, V>(sl, pix) * TILE + mj;
-        r = to_u8(y128 + terms[c]);
-        g = to_u8(y128 + terms[64 * TILE + c]);
-        b = to_u8(y128 + terms[2 * 64 * TILE + c]);
-      });
+  if constexpr (VEC16) {
+    store_truerez16<H, V>(samples, terms, out, m0, num_mcus, valid);
+  } else {
+    store_rgb<GY, 64, TILE_MCUS, TILE_THREADS>(
+        out, m0, num_mcus,
+        [&](int sl, int pix, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
+          const int32_t y128 = samples[(sl * 64 + pix) * SAMPLE_ROW + mj] + 128;
+          const int c = truerez_chroma<H, V>(sl * 64 + pix);
+          r = to_u8(y128 + term_at(terms, 0, c, mj));
+          g = to_u8(y128 + term_at(terms, 1, c, mj));
+          b = to_u8(y128 + term_at(terms, 2, c, mj));
+        });
+  }
 }
 
 // rgb_stacked_kernel's dynamic shared memory: decode_tile.cuh's TileLayout
@@ -318,12 +497,25 @@ template <typename T>
 using KernelFn = void (*)(const T*, const int32_t*, const int32_t*, int,
                           uint8_t*, long long);
 
-// The stacked kernel of one mode and store form and its dynamic shared
-// memory, prepared once per instantiation (above the 48 KB static limit).
+enum class Variant { kMemfloor, kTruerez, kStacked };
+
+// The tile kernel (truerez or stacked) of one mode and store form and its
+// dynamic shared memory, prepared once per instantiation (the stacked
+// kernel's is above the 48 KB static limit).  The layouts' bank claims
+// are checked here, at build time.
 template <typename T, int H, int V, bool VEC16>
-cudaError_t stacked_kernel(KernelFn<T>& fn, int& smem) {
+cudaError_t tile_kernel(Variant var, KernelFn<T>& fn, int& smem) {
   static_assert(stacked_conflict_free<StackedLayout<T, H * V>::kScratch>(),
                 "stacked scratch bank conflicts");
+  static_assert(truerez_conflict_free<H, V>(),
+                "truerez terms: fit or bank conflicts");
+  if (var == Variant::kTruerez) {
+    fn = rgb_truerez_kernel<T, H, V, VEC16>;
+    smem = TileLayout<T, H * V + 2>::kBytes;
+    static const cudaError_t ready =
+        prepare(reinterpret_cast<const void*>(fn), smem);
+    return ready;
+  }
   fn = rgb_stacked_kernel<T, H, V, VEC16>;
   smem = StackedLayout<T, H * V>::kBytes;
   static const cudaError_t ready =
@@ -331,7 +523,13 @@ cudaError_t stacked_kernel(KernelFn<T>& fn, int& smem) {
   return ready;
 }
 
-enum class Variant { kMemfloor, kTruerez, kStacked };
+// tile_kernel for a launch with 16-byte row stores (vec16) or byte stores.
+template <typename T, int H, int V>
+cudaError_t pick_tile_kernel(Variant var, bool vec16, KernelFn<T>& fn,
+                             int& smem) {
+  return vec16 ? tile_kernel<T, H, V, true>(var, fn, smem)
+               : tile_kernel<T, H, V, false>(var, fn, smem);
+}
 
 struct Args {
   const void* coeffs;
@@ -351,18 +549,13 @@ int launch(Variant var, const Args& a) {
     const unsigned blocks = grid(a.num_mcus, TILE);
     memfloor_kernel<T, H * V><<<blocks, G * TILE, 0, a.stream>>>(
         c, a.out, a.num_mcus);
-  } else if (var == Variant::kTruerez) {
-    const unsigned blocks = grid(a.num_mcus, TILE);
-    rgb_truerez_kernel<T, H, V><<<blocks, G * TILE, 0, a.stream>>>(
-        c, a.qidx, a.qpool, a.num_q, a.out, a.num_mcus);
   } else {
     // 16-byte row stores when every output row is 16-byte aligned.
     const bool vec16 = a.num_mcus % VEC == 0 &&
                        reinterpret_cast<uintptr_t>(a.out) % VEC == 0;
     KernelFn<T> kernel;
     int smem;
-    const cudaError_t e = vec16 ? stacked_kernel<T, H, V, true>(kernel, smem)
-                                : stacked_kernel<T, H, V, false>(kernel, smem);
+    const cudaError_t e = pick_tile_kernel<T, H, V>(var, vec16, kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<grid(a.num_mcus, TILE_MCUS), TILE_THREADS, smem, a.stream>>>(
         c, a.qidx, a.qpool, a.num_q, a.out, a.num_mcus);
@@ -407,6 +600,31 @@ int run(Variant var, const void* coeffs, int wire_bytes, const void* qidx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile kernel (`var`) a launch of M % 16 == 0 (vec16 = 1) or of the byte
+// stores (0) takes in mode h x v on this wire: its dynamic shared memory in
+// *smem_bytes and the blocks of TILE_THREADS an SM holds in *blocks_per_sm
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int tile_occupancy(Variant var, int wire_bytes, int h, int v, int vec16,
+                   int* blocks_per_sm, int* smem_bytes) {
+  if (wire_bytes != 1 && wire_bytes != 2) return cudaErrorInvalidValue;
+  return dispatch_mode(h, v, [&](auto hc, auto vc) {
+    constexpr int H = decltype(hc)::value, V = decltype(vc)::value;
+    const auto query = [&](auto wire) {
+      using T = decltype(wire);
+      KernelFn<T> kernel;
+      int smem = 0;
+      cudaError_t e = pick_tile_kernel<T, H, V>(var, vec16 != 0, kernel, smem);
+      if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks_per_sm, kernel, TILE_THREADS, smem);
+      }
+      *smem_bytes = smem;
+      return static_cast<int>(e);
+    };
+    return wire_bytes == 2 ? query(int16_t{}) : query(int8_t{});
+  });
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes), with pjt_cuda_decode_rgb's signature
@@ -441,29 +659,16 @@ extern "C" int pjt_cuda_decode_rgb_stacked(const void* coeffs, int wire_bytes,
              num_mcus, h, v, ncomp, stream);
 }
 
-// The stacked kernel a launch of M % 16 == 0 (vec16 = 1) or of the byte
-// stores (0) takes in mode h x v on this wire: its dynamic shared memory
-// in *smem_bytes and the blocks of TILE_THREADS an SM holds in
-// *blocks_per_sm (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int pjt_cuda_stacked_occupancy(int wire_bytes, int h, int v,
                                           int vec16, int* blocks_per_sm,
                                           int* smem_bytes) {
-  if (wire_bytes != 1 && wire_bytes != 2) return cudaErrorInvalidValue;
-  return dispatch_mode(h, v, [&](auto hc, auto vc) {
-    constexpr int H = decltype(hc)::value, V = decltype(vc)::value;
-    const auto query = [&](auto wire) {
-      using T = decltype(wire);
-      KernelFn<T> kernel;
-      int smem = 0;
-      cudaError_t e = vec16 ? stacked_kernel<T, H, V, true>(kernel, smem)
-                            : stacked_kernel<T, H, V, false>(kernel, smem);
-      if (e == cudaSuccess) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, kernel, TILE_THREADS, smem);
-      }
-      *smem_bytes = smem;
-      return static_cast<int>(e);
-    };
-    return wire_bytes == 2 ? query(int16_t{}) : query(int8_t{});
-  });
+  return tile_occupancy(Variant::kStacked, wire_bytes, h, v, vec16,
+                        blocks_per_sm, smem_bytes);
+}
+
+extern "C" int pjt_cuda_truerez_occupancy(int wire_bytes, int h, int v,
+                                          int vec16, int* blocks_per_sm,
+                                          int* smem_bytes) {
+  return tile_occupancy(Variant::kTruerez, wire_bytes, h, v, vec16,
+                        blocks_per_sm, smem_bytes);
 }

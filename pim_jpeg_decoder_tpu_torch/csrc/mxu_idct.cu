@@ -22,30 +22,75 @@
 // to TF32 by cvt.rna.tf32.f32 (to nearest; the unit would truncate raw
 // float32 bits).  One MMA takes a 16x8 A operand: the two-pass kernel
 // computes each pass transposed, D = X^T A^T, so the 16 rows are the 8 rows
-// of two 8x8 blocks and no row is padding; the second pass reads the first
-// pass's D back from shared memory transposed.  The 64-point kernel is a
+// of two 8x8 blocks and no row is padding.  The 64-point kernel is a
 // [16 blocks, 64] x [64, 64] product per warp, 8 x 8 MMAs into 32 float32
 // accumulators.  On the tool's inputs (|x| < 2^11) the hi/lo pieces are
 // integers below 2^8, exact in TF32, and the products' sums stay below
-// 2^24, so mxu2pass4 equals its float32 plain version
-// bit for bit; its recombination uses __fmul_rn / __fadd_rn in the JAX
-// order, so nvcc cannot contract it into FMAs.  pieces=1 and the 64-point
-// product round their 12-bit (and 24-bit) basis entries to TF32's 11
-// significant bits and differ from float32 by 1-2 in a few percent of
-// samples.
+// 2^24, so mxu2pass4 equals its float32 plain version bit for bit.
+// pieces=1 and the 64-point product round their 12-bit (and 24-bit) basis
+// entries to TF32's 11 significant bits and differ from float32 by 1-2 in
+// a few percent of samples.
 //
-// What bounds them on an H100: bytes.  At the tool's geometry (4:2:0,
-// M=16,384: 98,304 blocks) each moves 12.6 MB in and 12.6 MB out, ~7.5 us at
-// 3.35 TB/s; the TF32 work is 0.2-0.8 GFLOP, 0.4-1.6 us at 495 TFLOP/s.  The
-// design is the simple one: a CUDA block stages 64 blocks (8 KB of int16)
-// into shared memory as float32 with 16-byte loads, its four warps run the
-// MMAs out of shared memory, and the results leave with 16-byte stores.
-// Shared rows of the 64-point kernel are padded to 68 words, so the
-// fragment loads of a warp fall on 32 different banks.
+// Their bound on an H100 is bytes.  At the tool's geometry (4:2:0,
+// M=16,384: 98,304 blocks) each moves 12.6 MB in and 12.6 MB out, 7.51 us
+// at 3.35 TB/s; the TF32 work is 0.2-0.8 GFLOP, 0.4-1.6 us at 495 TFLOP/s.
+//
+// mxu2pass_kernel's first form staged 64 blocks a CUDA block as float32 in
+// shared memory (16 KB, scalar stores 8 words apart), one tile a block with
+// synchronous loads, the pass-1 results and the output back through that
+// tile with 2-way bank conflicts: 18.2 [23.4-24.0] us with pieces 1 [2] on
+// an H100 80GB HBM3 at 700 W (PERF.md), 42% [32%] of the byte bound.  The
+// redesign:
+//   - a warp owns kTiles tiles of M2_TILE blocks (1 KB of int16 a tile, one
+//     contiguous 128-byte-aligned run): lane 0 issues every tile's bulk
+//     copy (cp.async.bulk, Hopper's 1-D TMA, only the valid blocks of a
+//     ragged tile) at once, each completing a transaction count on its own
+//     mbarrier, so the second tile lands while the first computes.  Warps
+//     share no barrier.  Pieces 2, about twice the instructions a block,
+//     takes two tiles a warp, pieces 1 one.  A persistent grid whose warps
+//     walk their tiles through a 2-4 stage ring (tried first: 1 or 2 KB
+//     tiles, contiguous or strided shares, bulk or 16-byte copies) lost to
+//     this at M=196,608 by more than a tenth, and so did copy-only kernels
+//     of the same persistent shape against one-tile warps (PERF.md);
+//   - fragments read straight from the int16 tile (2-byte loads, a block's
+//     32 words over 32 banks), every pair's before the first product (the
+//     tile and the scratch may alias as far as the compiler knows, so it
+//     would not hoist them past a store), converted in registers; pieces 2
+//     splits an int16 exactly into (x >> 8, x & 255), which TF32 holds;
+//   - between the passes a per-warp float32 scratch of [block][h][r]
+//     (8-byte stores of two r, 4-byte loads down h), one __syncwarp;
+//   - the pass-2 results leave rounded, clipped and converted by one
+//     saturating cvt.rni.sat.s8.f32 each, packed as int16 pairs by one
+//     prmt, 4 bytes a lane: each warp store writes a block's 128
+//     contiguous bytes.
+// The bank claims of the three shared-memory accesses are static_asserts
+// on the index functions the kernel uses (mxu2pass_conflict_free).  The
+// arithmetic is the first form's: the same products with the same
+// contraction order (k = v, then k = h), TF32 operands rounded to nearest
+// with ties away (cvt.rna's rounding, as tf32_rna), rintf's rounding and
+// the per-pass scale, the pieces-2 recombination in the JAX order (its
+// terms exact and its scale a power of two, so fused multiply-adds round
+// as the __fmul_rn / __fadd_rn chain does), so the output equals the first
+// form's byte for byte.  On an H100 80GB HBM3 at 700 W (PERF.md;
+// tools/decode_ab.py against the first form, digests equal): pieces 1
+// [2] 12.46-12.54 [15.87-15.98] us at M=16,384 (was 17.98-18.03
+// [23.38-23.54]) and 105.6-105.7 [117.0-117.1] us at M=196,608 (was 127.0
+// [176.1-176.2]); 32 [64] registers, 12,320 [16,448] B of shared memory,
+// 16 [8] blocks an SM.  Pieces 1 is bound by bytes now (60% of 7.51 us,
+// level with the butterfly stage at M=196,608); pieces 2 by issue (1,124
+// SASS instructions for a warp's 16 blocks, four products and their
+// recombination a pass).
+// mxu64_kernel keeps the first form's tile: a CUDA block stages 64 blocks
+// (8 KB of int16) into shared memory as float32 with 16-byte loads, its
+// four warps run the MMAs out of shared memory, and the results leave with
+// 16-byte stores.  Its shared rows are padded to 68 words, so the fragment
+// loads of a warp fall on 32 different banks.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "decode_tile.cuh"   // phase_conflict_free
 
 namespace {
 
@@ -55,6 +100,24 @@ constexpr int TILE_BLOCKS = WARPS * 16;   // 8x8 blocks per CUDA block
 constexpr int CHUNKS = TILE_BLOCKS * 8;   // 16-byte chunks of a tile
 constexpr int ROW64 = 68;                 // padded row of the 64-point tiles
 constexpr int MXU64_MAX_GRID = 132 * 4;   // blocks walk the tiles beyond
+
+// mxu2pass_kernel: CUDA blocks of M2_WARPS warps, each warp with its own
+// kTiles tiles of M2_TILE blocks in shared memory and its own pass-1
+// scratch.
+constexpr int M2_WARPS = 4;
+constexpr int M2_THREADS = M2_WARPS * 32;
+constexpr int M2_MIN_BLOCKS = 8;          // resident blocks an SM must fit
+constexpr int M2_TILE = 8;                // blocks a tile (1 KB)
+constexpr int M2_TILES_P1 = 1;            // tiles a warp, pieces 1
+constexpr int M2_TILES_P2 = 2;            // tiles a warp, pieces 2
+constexpr int M2_PAIRS = M2_TILE / 2;     // MMA pairs a tile
+
+// Tiles a warp takes: pieces 2 runs about twice the instructions a block,
+// and a second tile landing while the first computes keeps its loads in
+// flight.
+template <int PIECES>
+constexpr int kTiles = PIECES == 1 ? M2_TILES_P1 : M2_TILES_P2;
+constexpr int M2_PAIR_WORDS = 128;        // scratch of one pair: 2 x 64
 
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
@@ -77,6 +140,44 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// The shared-memory address of p, for the mbarrier and bulk-copy PTX.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier that completes a phase on one arrival and its transactions.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive on bar expecting `bytes`, and copy them from global src to shared
+// dst with one bulk copy that completes them on bar (both addresses
+// 16-byte aligned, bytes a multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
 }
 
 // int16 blocks [b0, b0 + nb) -> float32 rows of `row` words in `tile`
@@ -131,57 +232,256 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo) {
   lo = __fsub_rn(x, __fmul_rn(hi, 256.0f));
 }
 
-// One pass on a pair of blocks: d = X^T B for the A operand fragments
-// x[4] (float32) and the basis fragments b (TF32, [piece][2]), then
-// round(d * inv).  PIECES == 2 splits x into hi/lo and recombines four
-// products in the JAX order.
+// --- mxu2pass_kernel ----------------------------------------------------------
+//
+// One MMA takes a pair of blocks (P0, P1).  Pass 1: A row gid is (P0, h =
+// gid), row gid + 8 (P1, h = gid), column k = v; D column n = r.  Pass 2:
+// A row gid is (P0, r = gid), row gid + 8 (P1, r = gid), column k = h; D
+// column n = p.  The index functions below give, for lane (gid, tid), the
+// int16 a pass-1 fragment reads in the pair's 128 values (P1 64 after P0),
+// the float32 words of the pass-1 scratch it writes and reads ([block][h]
+// [r], 64 words a block), and the static_assert below holds their bank
+// claims.
+
+// Pass-1 A fragment i (0..3) of lane: X_blk[v][h] at blk*64 + v*8 + h.
+__host__ __device__ constexpr int pass1_elem(int lane, int i) {
+  return (i & 1) * 64 + ((lane & 3) + 4 * (i >> 1)) * 8 + (lane >> 2);
+}
+
+// First of the two words lane stores for pass-1 D fragments 2q, 2q + 1:
+// y1_blk[r = 2 tid, 2 tid + 1][h = gid] of block q.
+__host__ __device__ constexpr int scratch_store(int lane, int q) {
+  return q * 64 + (lane >> 2) * 8 + 2 * (lane & 3);
+}
+
+// Pass-2 A fragment i of lane: y1_blk[r = gid][h = tid + 4 (i >> 1)] of
+// block i & 1.
+__host__ __device__ constexpr int scratch_load(int lane, int i) {
+  return (i & 1) * 64 + ((lane & 3) + 4 * (i >> 1)) * 8 + (lane >> 2);
+}
+
+// The claims: each pass-1 fragment load (32 lanes, 2-byte, lanes of one
+// word share it), each scratch store (two phases of 16 lanes, 8-byte) and
+// each scratch load (32 lanes, 4-byte) falls on distinct banks.
+constexpr bool mxu2pass_conflict_free() {
+  for (int i = 0; i < 4; ++i) {
+    int w[32] = {};
+    for (int l = 0; l < 32; ++l) w[l] = pass1_elem(l, i) / 2;
+    if (!phase_conflict_free(w, 32, 1)) return false;
+    for (int l = 0; l < 32; ++l) w[l] = scratch_load(l, i);
+    if (!phase_conflict_free(w, 32, 1)) return false;
+  }
+  for (int q = 0; q < 2; ++q) {
+    for (int half = 0; half < 32; half += 16) {
+      int w[16] = {};
+      for (int l = 0; l < 16; ++l) w[l] = scratch_store(half + l, q);
+      if (!phase_conflict_free(w, 16, 2)) return false;
+    }
+  }
+  return true;
+}
+static_assert(mxu2pass_conflict_free(), "mxu2pass shared-memory banks");
+static_assert(M2_TILE % 2 == 0 && M2_TILE * 128 % 16 == 0,
+              "a tile is whole pairs and a whole number of 16-byte chunks");
+
+// cvt.rna.tf32.f32 of a finite float32 as the tensor core reads it: adding
+// half an ulp of TF32 at bit 13 rounds the magnitude to nearest, ties away
+// from zero, and the unit ignores the 13 bits below (as CUTLASS's
+// round_half_ulp_truncate relies on): one integer add where cvt.rna also
+// tests for NaN and infinity, which these integers never are.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return __float_as_uint(x) + 0x1000u;
+}
+
+// An A operand as TF32 fragments: pieces 1 in hi, pieces 2 its hi and lo
+// 8-bit pieces.
+struct Operand {
+  uint32_t hi[4], lo[4];
+};
+
+// Pass 1's operand from the int16 coefficients.  Pieces 2: jnp.floor(x /
+// 256) and x - 256 hi of an integer are x >> 8 and x & 255, which TF32
+// holds exactly (cvt.rna would leave them as they are).
 template <int PIECES>
-__device__ __forceinline__ void matpass(const float (&x)[4],
+__device__ __forceinline__ Operand int_operand(const int32_t (&x)[4]) {
+  Operand a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (PIECES == 1) {
+      a.hi[i] = tf32_rna(static_cast<float>(x[i]));
+      a.lo[i] = 0u;
+    } else {
+      a.hi[i] = __float_as_uint(static_cast<float>(x[i] >> 8));
+      a.lo[i] = __float_as_uint(static_cast<float>(x[i] & 255));
+    }
+  }
+  return a;
+}
+
+// Pass 2's operand from the float32 pass-1 results (integers).  Pieces 2:
+// split(), with lo = x - 256 hi as one fused multiply-add (256 hi is exact,
+// so it rounds as __fsub_rn does); lo is an integer in [0, 256), exact in
+// TF32.
+template <int PIECES>
+__device__ __forceinline__ Operand float_operand(const float (&x)[4]) {
+  Operand a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (PIECES == 1) {
+      a.hi[i] = tf32_rna(x[i]);
+      a.lo[i] = 0u;
+    } else {
+      const float hi = floorf(__fmul_rn(x[i], 1.0f / 256.0f));
+      a.hi[i] = tf32_rna(hi);
+      a.lo[i] = __float_as_uint(__fmaf_rn(hi, -256.0f, x[i]));
+    }
+  }
+  return a;
+}
+
+// One pass on a pair of blocks: d = X^T B for the operand a and the basis
+// fragments b (TF32, [piece][2]), scaled: y = d * inv, which the caller
+// rounds (rintf after pass 1, the saturating conversion after pass 2).
+// Pieces 2 recombines its four products in the JAX order,
+// ((hh*65536 + hl*256) + lh*256) + ll, then scales by inv: inv is a power
+// of two, and every term and partial sum is an integer far from the
+// float32 range's ends, so scaling each term first rounds each sum the
+// same way, and hh*65536*inv, hl*256*inv, lh*256*inv and ll*inv are exact:
+// one multiply and three fused multiply-adds give the first form's
+// __fmul_rn / __fadd_rn chain bit for bit.
+template <int PIECES>
+__device__ __forceinline__ void matpass(const Operand& a,
                                         const uint32_t (&b)[2][2], float inv,
                                         float (&y)[4]) {
   const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (PIECES == 1) {
-    const uint32_t a[4] = {tf32(x[0]), tf32(x[1]), tf32(x[2]), tf32(x[3])};
-    mma(y, a, b[0], zero);
-  } else {
-    uint32_t x_hi[4], x_lo[4];
+    mma(y, a.hi, b[0], zero);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float hi, lo;
-      split(x[i], hi, lo);
-      x_hi[i] = tf32(hi);
-      x_lo[i] = tf32(lo);
-    }
+    for (int i = 0; i < 4; ++i) y[i] = __fmul_rn(y[i], inv);
+  } else {
     // b[0]: the basis's hi pieces a_hi, b[1]: its lo pieces a_lo.
     float hh[4], hl[4], lh[4], ll[4];
-    mma(hh, x_hi, b[0], zero);   // dot(a_hi, x_hi)
-    mma(hl, x_lo, b[0], zero);   // dot(a_hi, x_lo)
-    mma(lh, x_hi, b[1], zero);   // dot(a_lo, x_hi)
-    mma(ll, x_lo, b[1], zero);   // dot(a_lo, x_lo)
+    mma(hh, a.hi, b[0], zero);   // dot(a_hi, x_hi)
+    mma(hl, a.lo, b[0], zero);   // dot(a_hi, x_lo)
+    mma(lh, a.hi, b[1], zero);   // dot(a_lo, x_hi)
+    mma(ll, a.lo, b[1], zero);   // dot(a_lo, x_lo)
+    const float s8 = 256.0f * inv;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      y[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(hh[i], 65536.0f),
-                                           __fmul_rn(hl[i], 256.0f)),
-                                 __fmul_rn(lh[i], 256.0f)),
-                       ll[i]);
+      const float t = __fmaf_rn(
+          lh[i], s8, __fmaf_rn(hl[i], s8, __fmul_rn(hh[i], 65536.0f * inv)));
+      y[i] = __fmaf_rn(ll[i], inv, t);
+    }
+  }
+}
+
+// rintf, then the clip to [-128, 127], as one conversion: cvt.rni rounds
+// half to even, as rintf does, and .sat clamps to the int8 range, whose
+// ends are the clip's (round then clamp equals clamp then round for
+// integer bounds).  The low byte holds the sample.
+__device__ __forceinline__ uint32_t to_sample(float y) {
+  uint32_t r;
+  asm("cvt.rni.sat.s8.f32 %0, %1;" : "=r"(r) : "f"(y));
+  return r;
+}
+
+// Bytes 0 and 4 of (lo, hi), each sign-extended to 16 bits: PTX prmt's
+// selectors 8 and 12 replicate the sign of bytes 0 and 4 (__byte_perm
+// reads only the low 3 bits of a selector).
+__device__ __forceinline__ uint32_t sign_pack(uint32_t lo, uint32_t hi) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, 0xC480;" : "=r"(r) : "r"(lo), "r"(hi));
+  return r;
+}
+
+// Two samples as one word of int16 (lo first).
+__device__ __forceinline__ uint32_t pack_samples(float lo, float hi) {
+  return sign_pack(to_sample(lo), to_sample(hi));
+}
+
+// Both passes over one tile into dst, of which the first nb blocks are
+// stored: pass 1 on every pair, y1[r][h] of both blocks to the scratch as
+// float32 (integers), one __syncwarp, then pass 2, whose d0, d1 are
+// samples (r = gid, p = 2 tid, 2 tid + 1) of the pair's first block and d2,
+// d3 of its second: one word each, so a warp store writes a block's 128
+// bytes.  Each pass loads every pair's fragments before its first product
+// (the tile and the scratch may alias as far as the compiler knows, so it
+// would not hoist them), and a ragged tile's pairs past nb run on stale
+// blocks and are never stored.
+template <int PIECES>
+__device__ __forceinline__ void run_tile(const int16_t* tile, float* sc,
+                                         int16_t* __restrict__ dst, int nb,
+                                         int lane, const uint32_t (&b)[2][2],
+                                         float inv1, float inv2) {
+  int32_t x1[M2_PAIRS][4];
+#pragma unroll
+  for (int j = 0; j < M2_PAIRS; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x1[j][i] = tile[j * 128 + pass1_elem(lane, i)];
+  }
+#pragma unroll
+  for (int j = 0; j < M2_PAIRS; ++j) {
+    float y[4];
+    matpass<PIECES>(int_operand<PIECES>(x1[j]), b, inv1, y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = rintf(y[i]);
+    float* q = sc + j * M2_PAIR_WORDS;
+    *reinterpret_cast<float2*>(q + scratch_store(lane, 0)) =
+        make_float2(y[0], y[1]);
+    *reinterpret_cast<float2*>(q + scratch_store(lane, 1)) =
+        make_float2(y[2], y[3]);
+  }
+  __syncwarp();
+  float x2[M2_PAIRS][4];
+#pragma unroll
+  for (int j = 0; j < M2_PAIRS; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x2[j][i] = sc[j * M2_PAIR_WORDS + scratch_load(lane, i)];
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) y[i] = rintf(__fmul_rn(y[i], inv));
+  for (int j = 0; j < M2_PAIRS; ++j) {
+    float y[4];
+    matpass<PIECES>(float_operand<PIECES>(x2[j]), b, inv2, y);
+    uint32_t* o = reinterpret_cast<uint32_t*>(dst + j * 128) + lane;
+    if (2 * j < nb) o[0] = pack_samples(y[0], y[1]);
+    if (2 * j + 1 < nb) o[32] = pack_samples(y[2], y[3]);
+  }
 }
 
 template <int PIECES>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(M2_THREADS, M2_MIN_BLOCKS)
 mxu2pass_kernel(const int16_t* __restrict__ deq,
                 const float* __restrict__ mat, int16_t* __restrict__ out,
                 long long num_blocks, float inv1, float inv2) {
-  __shared__ float tile[TILE_BLOCKS * 64];
-  const long long b0 = static_cast<long long>(blockIdx.x) * TILE_BLOCKS;
-  const long long left = num_blocks - b0;
-  const int nb = left < TILE_BLOCKS ? static_cast<int>(left) : TILE_BLOCKS;
-  load_tile(deq + b0 * 64, nb, tile, 64);
+  constexpr int T = kTiles<PIECES>;
+  __shared__ __align__(128) int16_t tiles[M2_WARPS][T][M2_TILE * 64];
+  __shared__ __align__(16) float scratch[M2_WARPS][M2_PAIRS * M2_PAIR_WORDS];
+  __shared__ __align__(8) uint64_t full[M2_WARPS][T];
 
-  const int lane = threadIdx.x % 32, gid = lane >> 2, tid = lane & 3;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // The warp's blocks: [b0, b0 + T * M2_TILE), cut at num_blocks.
+  // Warps share no barrier, so a warp past the end leaves at once.
+  const long long b0 =
+      (static_cast<long long>(blockIdx.x) * M2_WARPS + warp) * M2_TILE * T;
+  if (b0 >= num_blocks) return;
+  const long long left = num_blocks - b0;
+  uint64_t* bars = full[warp];
+  if (lane == 0) {
+    // Every tile's copy in flight at once, each on its own mbarrier.
+#pragma unroll
+    for (int k = 0; k < T; ++k) {
+      const long long rest = left - k * M2_TILE;
+      if (rest <= 0) break;
+      mbar_init(bars + k);
+      bulk_load(tiles[warp][k], deq + (b0 + k * M2_TILE) * 64,
+                static_cast<uint32_t>((rest < M2_TILE ? rest : M2_TILE) * 128),
+                bars + k);
+    }
+  }
+
+  const int gid = lane >> 2, tid = lane & 3;
   // B = A^T: b0 = A[gid][tid], b1 = A[gid][tid + 4] (hi/lo pieces for 2).
   uint32_t b[2][2];
   {
@@ -201,40 +501,19 @@ mxu2pass_kernel(const int16_t* __restrict__ deq,
       b[1][1] = tf32(lo1);
     }
   }
-  __syncthreads();
+  __syncwarp();   // the barriers are initialised before any lane waits
 
-  float* warp_tile = tile + (threadIdx.x / 32) * 16 * 64;
-  // Pass 1 on blocks (2j, 2j + 1): A operand row h + 8*blk, column v, is
-  // X[v][h]; d row h + 8*blk, column r, is (A X)[r][h], kept as y1[r][h].
-  for (int j = 0; j < 8; ++j) {
-    float* p = warp_tile + 2 * j * 64;
-    const float x[4] = {p[tid * 8 + gid], p[64 + tid * 8 + gid],
-                        p[(tid + 4) * 8 + gid], p[64 + (tid + 4) * 8 + gid]};
-    float y[4];
-    matpass<PIECES>(x, b, inv1, y);
-    __syncwarp();
-    p[(2 * tid) * 8 + gid] = y[0];
-    p[(2 * tid + 1) * 8 + gid] = y[1];
-    p[64 + (2 * tid) * 8 + gid] = y[2];
-    p[64 + (2 * tid + 1) * 8 + gid] = y[3];
+#pragma unroll
+  for (int k = 0; k < T; ++k) {
+    const long long rest = left - k * M2_TILE;
+    if (rest <= 0) break;
+    mbar_wait(bars + k, 0);
+    run_tile<PIECES>(tiles[warp][k], scratch[warp],
+                     out + (b0 + k * M2_TILE) * 64,
+                     rest < M2_TILE ? static_cast<int>(rest) : M2_TILE, lane,
+                     b, inv1, inv2);
+    __syncwarp();   // the scratch is refilled next
   }
-  __syncwarp();
-  // Pass 2: A operand row r + 8*blk, column h, is y1[r][h]; d row
-  // r + 8*blk, column p, is (y1 A^T)[r][p], stored at r*8 + p.
-  for (int j = 0; j < 8; ++j) {
-    float* p = warp_tile + 2 * j * 64;
-    const float x[4] = {p[gid * 8 + tid], p[64 + gid * 8 + tid],
-                        p[gid * 8 + tid + 4], p[64 + gid * 8 + tid + 4]};
-    float y[4];
-    matpass<PIECES>(x, b, inv2, y);
-    __syncwarp();
-    p[gid * 8 + 2 * tid] = clip_sample(y[0]);
-    p[gid * 8 + 2 * tid + 1] = clip_sample(y[1]);
-    p[64 + gid * 8 + 2 * tid] = clip_sample(y[2]);
-    p[64 + gid * 8 + 2 * tid + 1] = clip_sample(y[3]);
-  }
-  __syncthreads();
-  store_tile(tile, 64, nb, out + b0 * 64);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -300,6 +579,30 @@ unsigned grid_for(long long num_blocks) {
   return static_cast<unsigned>((num_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS);
 }
 
+// The CUDA blocks of mxu2pass_kernel<PIECES> an SM holds and their static
+// shared memory.
+int mxu2pass_resident(int pieces, int* blocks, int* smem) {
+  if (pieces != 1 && pieces != 2) return cudaErrorInvalidValue;
+  const void* kernel =
+      pieces == 1 ? reinterpret_cast<const void*>(mxu2pass_kernel<1>)
+                  : reinterpret_cast<const void*>(mxu2pass_kernel<2>);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess) {
+    *smem = static_cast<int>(attr.sharedSizeBytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      M2_THREADS, 0);
+  }
+  return static_cast<int>(e);
+}
+
+// The grid of a launch: a warp for every kTiles tiles.
+unsigned mxu2pass_grid(int pieces, long long num_blocks) {
+  const long long per_block = static_cast<long long>(M2_WARPS) * M2_TILE *
+                              (pieces == 1 ? kTiles<1> : kTiles<2>);
+  return static_cast<unsigned>((num_blocks + per_block - 1) / per_block);
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes).  Each launches on `stream`, allocates
@@ -312,21 +615,36 @@ unsigned grid_for(long long num_blocks) {
 extern "C" int pjt_cuda_mxu2pass(const void* deq, const void* mat, void* out,
                                  long long num_blocks, int pieces, float inv1,
                                  float inv2, void* stream) {
-  if (num_blocks <= 0) return cudaErrorInvalidValue;
+  if (num_blocks <= 0 || (pieces != 1 && pieces != 2)) {
+    return cudaErrorInvalidValue;
+  }
+  if (reinterpret_cast<uintptr_t>(deq) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+  const unsigned blocks = mxu2pass_grid(pieces, num_blocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int16_t* in = static_cast<const int16_t*>(deq);
   const float* m = static_cast<const float*>(mat);
   int16_t* o = static_cast<int16_t*>(out);
   if (pieces == 1) {
-    mxu2pass_kernel<1><<<grid_for(num_blocks), THREADS, 0, st>>>(
-        in, m, o, num_blocks, inv1, inv2);
-  } else if (pieces == 2) {
-    mxu2pass_kernel<2><<<grid_for(num_blocks), THREADS, 0, st>>>(
-        in, m, o, num_blocks, inv1, inv2);
+    mxu2pass_kernel<1><<<blocks, M2_THREADS, 0, st>>>(in, m, o, num_blocks,
+                                                      inv1, inv2);
   } else {
-    return cudaErrorInvalidValue;
+    mxu2pass_kernel<2><<<blocks, M2_THREADS, 0, st>>>(in, m, o, num_blocks,
+                                                      inv1, inv2);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// mxu2pass_kernel<pieces>: the CUDA blocks of M2_THREADS an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its static shared memory
+// and the grid of a launch of num_blocks blocks.
+extern "C" int pjt_cuda_mxu2pass_occupancy(int pieces, long long num_blocks,
+                                           int* blocks_per_sm,
+                                           int* smem_bytes, int* grid) {
+  *grid = static_cast<int>(mxu2pass_grid(pieces, num_blocks));
+  return mxu2pass_resident(pieces, blocks_per_sm, smem_bytes);
 }
 
 // inv = 2^-(2 CONST_BITS).

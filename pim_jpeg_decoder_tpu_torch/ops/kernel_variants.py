@@ -165,22 +165,33 @@ def rgb_stacked(coeffs: torch.Tensor, qidx: torch.Tensor,
                 rgb_stacked_reference, coeffs, qidx, qpool, mode)
 
 
+def _tile_occupancy(name: str, wire_bytes: int, mode: S.ModeSpec,
+                    vec16: bool) -> Tuple[int, int]:
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    rc = getattr(load(), f"pjt_cuda_{name}_occupancy")(
+        wire_bytes, mode.h, mode.v, int(vec16), ctypes.byref(blocks),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return blocks.value, smem.value
+
+
 def stacked_occupancy(wire_bytes: int, mode: S.ModeSpec,
                       vec16: bool = True) -> Tuple[int, int]:
     """``(blocks per SM, dynamic shared memory bytes)`` of the stacked
     kernel a launch of ``mode`` on this wire takes (``vec16``: M % 16 ==
     0, the 16-byte-store form), from the CUDA occupancy calculator on the
     current card."""
-    import ctypes
+    return _tile_occupancy("stacked", wire_bytes, mode, vec16)
 
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    blocks, smem = ctypes.c_int(), ctypes.c_int()
-    rc = load().pjt_cuda_stacked_occupancy(
-        wire_bytes, mode.h, mode.v, int(vec16), ctypes.byref(blocks),
-        ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return blocks.value, smem.value
+
+def truerez_occupancy(wire_bytes: int, mode: S.ModeSpec,
+                      vec16: bool = True) -> Tuple[int, int]:
+    """The same for the truerez kernel."""
+    return _tile_occupancy("truerez", wire_bytes, mode, vec16)
 
 
 # Launch-counter name -> (kernel wrapper, plain version).

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -46,6 +47,13 @@ from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
     _on_cuda,
     _plain_call,
 )
+
+# mxu2pass_kernel's geometry (csrc/mxu_idct.cu: M2_TILE, M2_TILES_P1,
+# M2_TILES_P2, M2_WARPS): a warp takes TILES_PER_WARP[pieces] tiles of
+# MXU2PASS_TILE 8x8 blocks, WARPS_PER_BLOCK warps a CUDA block.
+MXU2PASS_TILE = 8
+TILES_PER_WARP = {1: 1, 2: 2}
+WARPS_PER_BLOCK = 4
 
 INV1 = 2.0 ** -(S.CONST_BITS - S.PASS1_BITS)
 INV2 = 2.0 ** -(S.CONST_BITS + S.PASS1_BITS)
@@ -158,6 +166,22 @@ def mxu2pass(deq: torch.Tensor, pieces: int = 1) -> torch.Tensor:
                  out.data_ptr(), deq.shape[0] * deq.shape[1], pieces, INV1,
                  INV2), out, f"pieces={pieces}, M={deq.shape[0]}")
     return out
+
+
+def mxu2pass_occupancy(pieces: int, num_blocks: int) -> Tuple[int, int, int]:
+    """``(blocks per SM, static shared memory bytes, grid)`` of the
+    ``pieces`` kernel: the CUDA occupancy calculator's blocks on the current
+    card and the CUDA blocks a launch of ``num_blocks`` 8x8 blocks takes."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    _check_pieces(pieces)
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = load().pjt_cuda_mxu2pass_occupancy(
+        pieces, num_blocks, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return tuple(v.value for v in vals)
 
 
 def mxu64(deq: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``),
 the raster epilogue, the dequantize, IDCT and colour stage kernels, the
-scaled decode kernel and the stacked experiment kernel between two
-checkouts, in one call on one card.
+scaled decode kernel, the stacked and truerez experiment kernels and the
+tensor-core IDCT kernels between two checkouts, in one call on one card.
 
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent DIR
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --root DIR
@@ -30,13 +30,17 @@ the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
 output, the colour stage on the IDCT stage's, of the same seeded inputs;
 the scaled decode (``SCALED_GEOMETRIES``: 4:2:0 scale 2 at M=16,384 and
 196,608 on both wires, scale 4 and 8 at 196,608 int8, gray and 4:4:4
-scale 2 at 16,384 int8); the stacked kernel (``STACKED_GEOMETRIES``: 4:2:0
-at M=16,384 on both wires and 196,608 int16), whose lines end with
-``rgb_kernel``'s time on the same geometry from the same runs.
+scale 2 at 16,384 int8); the stacked and truerez kernels
+(``STACKED_GEOMETRIES``, ``TRUEREZ_GEOMETRIES``: 4:2:0 at M=16,384 on both
+wires and 196,608 int16), whose lines end with ``rgb_kernel``'s time on the
+same geometry from the same runs; the tensor-core IDCT (``MXU_GEOMETRIES``:
+``mxu2pass`` with pieces 1 and 2 and ``mxu64`` at 4:2:0, M=16,384, and both
+``mxu2pass`` forms at 196,608, int16).
 Inputs: Laplace(0, 6) coefficients, Q=16 quantizer rows (one of 16-bit
-values), uniform bytes for the epilogue, drawn from a fixed seed, rotated
-past twice the L2 (``utils/devbench.rotation_count``); each time is the
-median of 30 launches timed with CUDA events
+values), uniform bytes for the epilogue, the IDCT tool's draw (int16 in
+[-2048, 2048), ``tools/mxu_idct_ab.make_inputs``), drawn from a fixed seed,
+rotated past twice the L2 (``utils/devbench.rotation_count``); each time is
+the median of 30 launches timed with CUDA events
 (``utils/devbench.seconds_per_launch``), with their min and max.
 
 Needs a CUDA card (exit 2 without one); exit 1 if the runs disagree on an
@@ -89,6 +93,13 @@ SCALED_GEOMETRIES: Tuple[Tuple[tuple, int, int, int], ...] = (
 # (M, wire bytes) of the stacked kernel at 4:2:0
 STACKED_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
     (16384, 1), (16384, 2), (196608, 2))
+# (M, wire bytes) of the truerez kernel at 4:2:0
+TRUEREZ_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
+    (16384, 1), (16384, 2), (196608, 2))
+# (variant of tools/mxu_idct_ab, M) of the tensor-core IDCT at 4:2:0, int16
+MXU_GEOMETRIES: Tuple[Tuple[str, int], ...] = (
+    ("mxu2pass", 16384), ("mxu2pass4", 16384), ("mxu64", 16384),
+    ("mxu2pass", 196608), ("mxu2pass4", 196608))
 ORDER = ("parent", "change", "change", "parent")
 
 
@@ -123,6 +134,16 @@ def stacked_name(m: int, wire: int) -> str:
     return geometry_name("stacked", "4:2:0", m, wire)
 
 
+def truerez_name(m: int, wire: int) -> str:
+    """The truerez kernel at 4:2:0, beside ``rgb_kernel`` as the stacked
+    kernel is."""
+    return geometry_name("truerez", "4:2:0", m, wire)
+
+
+def mxu_name(variant: str, m: int) -> str:
+    return geometry_name(variant, "4:2:0", m, 2)
+
+
 def geometry_names() -> List[str]:
     """Every geometry ``side`` times, in its order."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
@@ -133,7 +154,9 @@ def geometry_names() -> List[str]:
             + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES]
             + [stage_name(stage, m) for stage, m in stage_geometries()]
             + [scaled_name(*g) for g in SCALED_GEOMETRIES]
-            + [stacked_name(m, w) for m, w in STACKED_GEOMETRIES])
+            + [stacked_name(m, w) for m, w in STACKED_GEOMETRIES]
+            + [truerez_name(m, w) for m, w in TRUEREZ_GEOMETRIES]
+            + [mxu_name(v, m) for v, m in MXU_GEOMETRIES])
 
 
 def stage_geometries() -> List[Tuple[str, int]]:
@@ -226,10 +249,13 @@ def side() -> dict:
 
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
-    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import rgb_stacked
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import (
+        rgb_stacked, rgb_truerez)
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_stage, dequantize_stage, idct_stage)
-    from pim_jpeg_decoder_tpu_torch.utils.devbench import seconds_per_launch
+    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import (
+        rotation_count, seconds_per_launch)
 
     dev = torch.device("cuda", 0)
     results = {}
@@ -289,6 +315,19 @@ def side() -> dict:
         measure(stacked_name(m, wire), lambda b: rgb_stacked(*b, mode), bufs)
         del bufs
         torch.cuda.empty_cache()
+    for m, wire in TRUEREZ_GEOMETRIES:
+        bufs = _inputs(torch, mode, m, wire, dev)
+        measure(truerez_name(m, wire), lambda b: rgb_truerez(*b, mode), bufs)
+        del bufs
+        torch.cuda.empty_cache()
+    fns = mxu_idct_ab.variant_fns()
+    for variant, m in MXU_GEOMETRIES:
+        count = max(2, rotation_count(m * mode.g * 64 * 2, dev))
+        bufs = [torch.from_numpy(d).to(dev)
+                for d in mxu_idct_ab.make_inputs(count, m)]
+        measure(mxu_name(variant, m), fns[variant][0], bufs)
+        del bufs
+        torch.cuda.empty_cache()
     return {"card": torch.cuda.get_device_name(0), "results": results}
 
 
@@ -317,10 +356,13 @@ def verdict(runs: Sequence[dict]) -> Dict[str, dict]:
 
 
 def report_lines(table: Dict[str, dict], card: str) -> List[str]:
-    """A line per geometry of ``verdict``'s table; a stacked geometry's
-    line ends with ``rgb_kernel``'s mean times on the same geometry."""
-    beside = {stacked_name(m, w): geometry_name("rgb", "4:2:0", m, w)
-              for m, w in STACKED_GEOMETRIES}
+    """A line per geometry of ``verdict``'s table; a stacked or truerez
+    geometry's line ends with ``rgb_kernel``'s mean times on the same
+    geometry."""
+    beside = {name(m, w): geometry_name("rgb", "4:2:0", m, w)
+              for name, geometries in ((stacked_name, STACKED_GEOMETRIES),
+                                       (truerez_name, TRUEREZ_GEOMETRIES))
+              for m, w in geometries}
     lines = []
     for name, row in table.items():
         rgb = table.get(beside.get(name))

@@ -175,3 +175,45 @@ def test_tool_difference_record():
     a = torch.tensor([[1, 2, 3, 4]], dtype=torch.int16)
     b = torch.tensor([[1, 4, 3, 3]], dtype=torch.int16)
     assert T.difference(a, b) == {"max_abs_diff": 2, "share_diff": 0.5}
+
+
+def test_mxu2pass_geometry_matches_the_header():
+    """``MXU2PASS_TILE`` / ``TILES_PER_WARP`` / ``WARPS_PER_BLOCK`` (read
+    by chip_smoke.py's edge cases and SASS accounting) are the values
+    csrc/mxu_idct.cu compiles mxu2pass_kernel with."""
+    import re
+
+    with open(os.path.join(REPO, "pim_jpeg_decoder_tpu_torch", "csrc",
+                           "mxu_idct.cu")) as f:
+        text = f.read()
+    for name, value in (("M2_TILE", X.MXU2PASS_TILE),
+                        ("M2_TILES_P1", X.TILES_PER_WARP[1]),
+                        ("M2_TILES_P2", X.TILES_PER_WARP[2]),
+                        ("M2_WARPS", X.WARPS_PER_BLOCK)):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert found and int(found.group(1)) == value
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name, pieces", [("mxu2pass", 1),
+                                          ("mxu2pass4", 2)])
+def test_kernels_line_names_each_mxu2pass_instantiation(name, pieces):
+    """chip_smoke's kernels line has an entry for each pieces of mxu2pass
+    (``mxu2pass4`` is pieces 2), under a name of its own, from the same
+    source and TPU kernel, held to its own tolerance and timed as a tool
+    variant; the IDCT tool runs both."""
+    C = _chip_smoke()
+    assert name in C.KERNELS and name in T.VARIANTS
+    assert C.KERNELS[name] == C.KERNELS["mxu2pass"]
+    names = [C.JSON_NAMES.get(k, f"decode_{k}") for k in C.KERNELS]
+    assert len(set(names)) == len(names)
+    assert C.JSON_NAMES[name].startswith(f"mxu_idct_2pass")
+    assert ("4" in C.JSON_NAMES[name]) == (pieces == 2)
+    assert C.MXU_TOLERANCE[name][0] == (2 if pieces == 1 else 0)
