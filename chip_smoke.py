@@ -30,12 +30,14 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    kernels (``csrc/mxu_idct.cu``: mxu2pass with pieces 1 and 2, mxu64) at
    M=16,384 and 1,001 of int16 in [-2048, 2048) within ``MXU_TOLERANCE``
    of their float32 plain versions (TF32 operands; pieces 2 bit-exact),
-   and mxu2pass where its tiles and grid branch (``mxu_edge_cases``: 1,
-   7, 8, 9 and 17 blocks, a last CUDA block with a ragged and idle warps,
-   a ``deq[5:]`` slice, M=196,608);
+   and mxu2pass and mxu64 where their tiles and grids branch
+   (``mxu_edge_cases``: mxu2pass at 1, 7, 8, 9 and 17 blocks, mxu64 at 1,
+   15, 16, 17, 63, 64 and 65, each with a last CUDA block holding a
+   ragged and idle warps, a ``deq[5:]`` slice, M=196,608);
    the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0; the tile
    kernels (RGB, YCbCr, scaled RGB at scale 2/4/8, and in the colour modes
-   the stacked and truerez kernels, also equal to the RGB kernel) in every
+   the stacked and truerez kernels, also equal to the RGB kernel, and the
+   memory floor) in every
    mode, both wires, at M values around their 32-MCU tile and 16-byte stores
    (``TILE_MS`` and ``EDGE_MS``: 1, 15, 17, 31, 32, 33, 65, 196,608) and on
    a ``coeffs[5:]`` slice of 1,027 MCUs, with extreme blocks and
@@ -73,7 +75,9 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    geometry and the VLC kernel; the ``tools/stage_profile`` record
    (staged sum, fused time, fusion ratio), the ``tools.kernel_opt`` record
    and rgb_kernel's GB/s as a share of the floor's (``memfloor_kernel``:
-   its first, per-thread form's access pattern; int16 and int8
+   the tiled decode kernels' pattern, a 32-MCU tile copied into shared
+   memory and 16-byte row stores, with the decode taken out, so a share
+   over 100% is printed as a finding; int16 and int8
    wire, from that one run) and over the tool's launch sizes
    (``kernel_opt.sweep``, 2,048 to 196,608 MCUs), the engine's end-to-end
    MP/s on the corpus, the batch path's images/s and MP/s, and the device
@@ -89,8 +93,10 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    kernel's counted in the least exact form, the matrix-form count
    beside it); and the registers, shared memory and blocks an SM of the
    epilogue's, the stage kernels', the scaled, stacked and truerez
-   kernels' and mxu2pass's instantiations (with SASS counts for truerez
-   at 4:2:0 and for mxu2pass).
+   kernels', the memory floor's, mxu2pass's and mxu64's instantiations
+   (with SASS counts for truerez and the floor at 4:2:0, for mxu2pass and
+   for mxu64); the floor and mxu64 also at M=196,608 against their bounds
+   (mxu64 beside its TF32 ``torch.matmul`` yardstick).
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -158,7 +164,9 @@ JSON_NAMES = {"raster": "raster_epilogue",
               "mxu2pass": "mxu_idct_2pass",
               "mxu2pass4": "mxu_idct_2pass4 (pieces 2)",
               "mxu64": "mxu_idct_64",
-              "vlc": "vlc_symbol_loop"}
+              "vlc": "vlc_symbol_loop",
+              "memfloor_196608": "kernel_opt_memfloor (M=196608 int16)",
+              "mxu64_196608": "mxu_idct_64 (M=196608)"}
 STAGES = ("dequant", "idct", "color")
 KERNEL_OPT_COUNTERS = ("memfloor", "truerez", "stacked")
 IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
@@ -481,7 +489,8 @@ def tile_cases(torch, dev, rng, max_err):
     MCU 5, an output whose rows start off the 16-byte grid): rgb_kernel,
     ycbcr_kernel, rgb_scaled_kernel at scale 2, 4 and 8 and, in the colour
     modes, rgb_stacked_kernel and rgb_truerez_kernel, which must also equal
-    rgb_kernel."""
+    rgb_kernel, and the memory floor (memfloor_kernel: its 16-byte stores
+    where M % 16 == 0, byte stores elsewhere)."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         coeffs_to_device, decode_mcus, decode_mcus_reference,
@@ -529,11 +538,15 @@ def tile_cases(torch, dev, rng, max_err):
                         if not torch.equal(got, fused):
                             fail(f"{name} kernel != rgb kernel: {what}")
                         cases += 2
+                    kernel, plain = KERNELS["memfloor"]
+                    same("memfloor", kernel(x, qi, qp, mode),
+                         plain(x, qi, qp, mode), what)
+                    cases += 1
                 del x, qi
     torch.cuda.empty_cache()
     return cases, (f"rgb/ycbcr/scaled 2,4,8 x 5 modes and stacked and "
-                   f"truerez (each also == rgb kernel) x 4 colour modes x "
-                   f"i16/i8 x M="
+                   f"truerez (each also == rgb kernel) and memfloor x 4 "
+                   f"colour modes x i16/i8 x M="
                    f"{sorted(set(TILE_MS) | set(EDGE_MS))} and a coeffs[5:] "
                    f"slice of 1,027 MCUs, extreme blocks and out-of-range "
                    f"qidx (Q, -1: a zero quantizer row)")
@@ -543,8 +556,8 @@ def mxu_cases(torch, dev, rng, max_err) -> str:
     """The tensor-core IDCT kernels against their float32 plain versions
     on the card, every ``pieces``, at M=16,384 and an odd M=1,001 of the
     tool's draw (int16 in [-2048, 2048)), within ``MXU_TOLERANCE``; then
-    ``mxu2pass`` (pieces 1 and 2) where its tiles and grid branch
-    (``mxu_edge_cases``)."""
+    ``mxu2pass`` (pieces 1 and 2) and ``mxu64`` where their tiles and
+    grids branch (``mxu_edge_cases``)."""
     from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
 
     fns = mxu_idct_ab.variant_fns()
@@ -583,31 +596,46 @@ def mxu_difference(torch, got, want, name, what, max_err,
     return d
 
 
-def mxu_edge_cases(torch, dev, rng, max_err) -> str:
-    """``mxu2pass`` with pieces 1 and 2 against its plain version, within
-    ``MXU_TOLERANCE``, where its design branches: 1, a tile less one, a
-    tile, a tile and one, two tiles and one 8x8 blocks (``MXU2PASS_TILE``
-    blocks a tile, ``[n, 1, 64]``); three CUDA blocks and a last one whose
-    first warp is full, whose second is ragged and whose others have no
-    blocks (``TILES_PER_WARP`` tiles a warp); a ``deq[5:]`` slice of 1,006
-    MCUs of 6 blocks; and M=196,608 (1,179,648 blocks).  The largest
-    difference is held in every case; the share of samples that differ, a
-    rate, over the small cases pooled and in the large one (a case of 64
-    samples can pass 4% by chance)."""
+def mxu_edge_shapes(name: str):
+    """``(blocks, shapes)`` of ``mxu_edge_cases`` for one kernel: the block
+    counts where its tiles branch (``[n, 1, 64]``) and three CUDA blocks
+    and a last one whose first warp is full, whose second is ragged and
+    whose others have no blocks; then a ``deq[5:]`` slice of 1,006 MCUs of
+    6 blocks and M=196,608 (1,179,648 blocks)."""
     from pim_jpeg_decoder_tpu_torch.ops.mxu_idct import (
-        MXU2PASS_TILE, TILES_PER_WARP, WARPS_PER_BLOCK)
+        MXU2PASS_TILE, MXU64_PAIR, MXU64_TILE, MXU64_UNITS, MXU64_WARPS,
+        TILES_PER_WARP, WARPS_PER_BLOCK)
+
+    if name == "mxu64":
+        tile, unit = MXU64_TILE, MXU64_TILE * MXU64_PAIR
+        per_warp = unit * MXU64_UNITS
+        ragged = 3 * MXU64_WARPS * per_warp + per_warp + unit + tile // 2 + 1
+        blocks = (1, tile - 1, tile, tile + 1, per_warp - 1, per_warp,
+                  per_warp + 1, ragged)
+    else:
+        tile = MXU2PASS_TILE
+        per_warp = tile * TILES_PER_WARP[1 if name == "mxu2pass" else 2]
+        ragged = 3 * WARPS_PER_BLOCK * per_warp + per_warp + tile // 2 + 1
+        blocks = (1, tile - 1, tile, tile + 1, 2 * tile + 1, ragged)
+    return blocks, [(n, 1, 64) for n in blocks] + ["slice", (196608, 6, 64)]
+
+
+def mxu_edge_cases(torch, dev, rng, max_err) -> str:
+    """``mxu2pass`` with pieces 1 and 2 and ``mxu64`` against their plain
+    versions, within ``MXU_TOLERANCE``, where their designs branch
+    (``mxu_edge_shapes``: tiles of ``MXU2PASS_TILE`` blocks, one or two a
+    warp; ``mxu64``'s MMA tiles of ``MXU64_TILE`` blocks, ``MXU64_PAIR`` a
+    unit, ``MXU64_UNITS`` units a warp).  The largest difference is held
+    in every case; the share of samples that differ, a rate, over the
+    small cases pooled and in the large one (a case of 64 samples can pass
+    4% by chance)."""
     from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
 
     fns = mxu_idct_ab.variant_fns()
-    tile = MXU2PASS_TILE
     notes = []
-    for name, pieces in (("mxu2pass", 1), ("mxu2pass4", 2)):
+    for name in ("mxu2pass", "mxu2pass4", "mxu64"):
         kernel, plain = fns[name]
-        per_warp = tile * TILES_PER_WARP[pieces]
-        ragged = 3 * WARPS_PER_BLOCK * per_warp + per_warp + tile // 2 + 1
-        shapes = [(n, 1, 64) for n in (1, tile - 1, tile, tile + 1,
-                                       2 * tile + 1, ragged)]
-        shapes += ["slice", (196608, 6, 64)]
+        blocks, shapes = mxu_edge_shapes(name)
         differ = total = 0
         for shape in shapes:
             n = (1006, 6, 64) if shape == "slice" else shape
@@ -627,10 +655,10 @@ def mxu_edge_cases(torch, dev, rng, max_err) -> str:
             fail(f"{name}: {share:.5f} of the small edge cases' samples "
                  f"differ from the plain version (at most "
                  f"{MXU_TOLERANCE[name][1]})")
-        notes.append(f"{name} at {len(shapes)} edge shapes (blocks 1, "
-                     f"{tile - 1}, {tile}, {tile + 1}, {2 * tile + 1}, "
-                     f"{ragged}, a [5:] slice, M=196608): max|diff| <= "
-                     f"{max_err[name]}, small cases' share {share:.5f}")
+        notes.append(f"{name} at {len(shapes)} edge shapes (blocks "
+                     f"{', '.join(str(n) for n in blocks)}, a [5:] slice, "
+                     f"M=196608): max|diff| <= {max_err[name]}, small "
+                     f"cases' share {share:.5f}")
     torch.cuda.empty_cache()
     return "; ".join(notes)
 
@@ -1388,15 +1416,24 @@ def us_band(band) -> str:
     return f"{med * 1e3:.1f} us (min {lo * 1e3:.1f}, max {hi * 1e3:.1f})"
 
 
+def floor_note(floor_us: float, prod_us: float, what: str) -> str:
+    """rgb_kernel's share of the floor's GB/s (the floor's time over
+    rgb_kernel's), and a finding where rgb_kernel is the faster."""
+    share = 100 * floor_us / prod_us
+    if share <= 100:
+        return f"{share:.1f}%"
+    return (f"{share:.1f}% -- FINDING: rgb_kernel beats the floor of its own "
+            f"pattern at {what}")
+
+
 def floor_shares(record: dict, card: str) -> None:
     """rgb_kernel against the memory floor of ``tools.kernel_opt``, from
     the tool's one run (same call, same rotation): the floor's time over
     rgb_kernel's is rgb_kernel's GB/s as a share of the floor's.  The
-    floor (``memfloor_kernel``) moves the bytes in the access pattern of
-    rgb_kernel's first, per-thread form (a thread per 8x8 block, byte
-    stores); the
-    tiled rgb_kernel does not use that pattern, so its share can pass
-    100%."""
+    floor (``memfloor_kernel``) moves the same bytes in the pattern of the
+    tiled decode kernels (a 32-MCU tile copied into shared memory, 16-byte
+    row stores) with the decode taken out, so a share over 100% is a
+    finding about the floor."""
     from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
 
     print(f"[4 times] tools.kernel_opt record: {json.dumps(record)} | {card}",
@@ -1407,42 +1444,52 @@ def floor_shares(record: dict, card: str) -> None:
                                       ("int8", 1, "memfloor_i8", "prod_i8")):
         mb = m * mode.g * 64 * nbytes / 1e6 + out_mb
         f_us, p_us = record[floor]["us"], record[prod]["us"]
-        print(f"[4 times] rgb_kernel vs the per-thread access-pattern floor, "
+        print(f"[4 times] rgb_kernel vs the tiled-pattern memory floor, "
               f"4:2:0 M={m} {wire} "
               f"wire ({mb:.1f} MB): floor {f_us} us ({mb / f_us * 1e3:.0f} "
               f"GB/s), rgb_kernel {p_us} us ({mb / p_us * 1e3:.0f} GB/s): "
-              f"{100 * f_us / p_us:.1f}% of the floor's GB/s (over 100%: "
-              f"faster than that pattern) | {card}",
-              flush=True)
+              f"{floor_note(f_us, p_us, f'M={m} {wire}')} of the floor's "
+              f"GB/s | {card}", flush=True)
 
 
 def floor_sweep(torch, card: str) -> None:
     """``tools.kernel_opt.sweep()``: every variant at each launch size of
     ``SWEEP_M``, each bit-exact, with rgb_kernel's share of the
-    per-thread access-pattern floor."""
+    tiled-pattern floor; then whether the floor is the faster at every
+    size on both wires (the floor property), each size where it is not
+    printed as a finding with the margin."""
     from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
 
     t0 = time.monotonic()
     table = kernel_opt.sweep()
     torch.cuda.empty_cache()
     mode = kernel_opt.MODE
+    misses = []
     for m, record in table.items():
         inexact = [n for n, r in record.items() if r["bit_exact"] is not True]
         if inexact:
             fail(f"tools.kernel_opt sweep at M={m}: not bit-exact: {inexact}")
         us = {n: r["us"] for n, r in record.items()}
         mb = m * (mode.g * 64 * 2 + 3 * mode.luma_slots * 64) / 1e6
-        print(f"[4 times] kernel_opt sweep 4:2:0 M={m} (floor: {-(-m // 64)}"
-              f" blocks of 64), us int16 [int8]: floor {us['memfloor']} "
-              f"[{us['memfloor_i8']}] ({mb / us['memfloor'] * 1e3:.0f} GB/s "
-              f"of {mb:.1f} MB int16), rgb_kernel {us['prod']} "
-              f"[{us['prod_i8']}], truerez {us['chroma_truerez']}, stacked "
-              f"{us['stacked']}; rgb_kernel at "
-              f"{100 * us['memfloor'] / us['prod']:.1f}% "
-              f"[{100 * us['memfloor_i8'] / us['prod_i8']:.1f}%] of the "
-              f"floor's GB/s | {card}", flush=True)
+        misses += [f"M={m} {wire}: floor {us[f]} us, rgb_kernel {us[p]} us "
+                   f"(+{100 * (us[f] / us[p] - 1):.1f}%)"
+                   for wire, f, p in (("int16", "memfloor", "prod"),
+                                      ("int8", "memfloor_i8", "prod_i8"))
+                   if us[f] > us[p]]
+        print(f"[4 times] kernel_opt sweep 4:2:0 M={m} (floor: "
+              f"{-(-m // 32)} tiles of 32), us int16 [int8]: floor "
+              f"{us['memfloor']} [{us['memfloor_i8']}] "
+              f"({mb / us['memfloor'] * 1e3:.0f} GB/s of {mb:.1f} MB int16), "
+              f"rgb_kernel {us['prod']} [{us['prod_i8']}], truerez "
+              f"{us['chroma_truerez']}, stacked {us['stacked']}; rgb_kernel "
+              f"at {floor_note(us['memfloor'], us['prod'], f'M={m} int16')} "
+              f"[{floor_note(us['memfloor_i8'], us['prod_i8'], f'M={m} int8')}]"
+              f" of the floor's GB/s | {card}", flush=True)
     print(f"[4 times] kernel_opt sweep: {len(table)} launch sizes, every "
-          f"variant bit-exact, in {time.monotonic() - t0:.1f} s", flush=True)
+          f"variant bit-exact, in {time.monotonic() - t0:.1f} s; the floor "
+          + ("is no slower than rgb_kernel at every size on both wires"
+             if not misses else "FINDING: slower than rgb_kernel at "
+             + "; ".join(misses)) + f" | {card}", flush=True)
 
 
 def phase_times(torch, dev, card: str, paths) -> dict:
@@ -1732,15 +1779,18 @@ def tile_resources(torch, card: str, medians: dict, sass: dict) -> None:
 def redesign_resources(torch, card: str, sass: dict) -> None:
     """Registers (ptxas, ``nvcc.log``) of every instantiation of the banded
     raster epilogue, the dequantize, IDCT and colour stage kernels, the
-    scaled decode kernel, the stacked and truerez kernels and mxu2pass,
-    with the shared memory and blocks an SM holds (the occupancy
-    calculator) of the 4:2:0 epilogue and dequantize ones that phase 4
-    times and of every IDCT, colour, scaled, stacked, truerez and mxu2pass
-    one (the IDCT kernel has one instantiation; the colour kernel one a
-    mode and store form; the scaled kernel one a mode, wire, scale and
-    store form, the stacked and truerez kernels one a colour mode, wire and
-    store form, mxu2pass one a ``pieces``), and the SASS instructions of
-    the 4:2:0 truerez ones and of mxu2pass (``sass``: ``sass_counts``).
+    scaled decode kernel, the stacked and truerez kernels, the memory
+    floor, mxu2pass and mxu64, with the shared memory and blocks an SM
+    holds (the occupancy calculator) of the 4:2:0 epilogue and dequantize
+    ones that phase 4 times and of every IDCT, colour, scaled, stacked,
+    truerez, floor, mxu2pass and mxu64 one (the IDCT kernel and mxu64 have
+    one instantiation; the colour kernel one a mode and store form; the
+    scaled kernel one a mode, wire, scale and store form, the stacked and
+    truerez kernels one a colour mode, wire and store form, the floor one
+    a luma slot count (4:2:2 and 4:4:0 share one), wire and store form,
+    mxu2pass one a ``pieces``), and the SASS instructions of the 4:2:0
+    truerez and floor ones and of mxu2pass and mxu64 (``sass``:
+    ``sass_counts``).
     Their layouts' bank and alignment claims are static_asserts in the CUDA
     source, so a build that passes holds them."""
     from pim_jpeg_decoder_tpu_torch.ops import _build
@@ -1750,9 +1800,10 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         TILE_MCUS, TILE_THREADS)
     from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import (
-        stacked_occupancy, truerez_occupancy)
+        memfloor_occupancy, stacked_occupancy, truerez_occupancy)
     from pim_jpeg_decoder_tpu_torch.ops.mxu_idct import (
-        MXU2PASS_TILE, TILES_PER_WARP, mxu2pass_occupancy)
+        MXU2PASS_TILE, MXU64_PAIR, MXU64_TILE, MXU64_UNITS, TILES_PER_WARP,
+        mxu2pass_occupancy, mxu64_occupancy)
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_occupancy, dequant_occupancy, idct_occupancy)
 
@@ -1771,9 +1822,11 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
     stacked = re.compile(r"rgb_stacked_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
     truerez = re.compile(r"rgb_truerez_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
     mxu2pass = re.compile(r"mxu2pass_kernelILi([12])E")
+    floor = re.compile(r"memfloor_kernelI([as])Li(\d)ELb([01])E")
     mode = S.mode_for((2, 2, 3))
     found = {"epilogue": [], "dequant": [], "idct": [], "color": [],
-             "scaled": [], "stacked": [], "truerez": [], "mxu2pass": []}
+             "scaled": [], "stacked": [], "truerez": [], "mxu2pass": [],
+             "memfloor": [], "mxu64": []}
     clock = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for mangled, regs in entries:
@@ -1831,6 +1884,44 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
                   f"{MXU2PASS_TILE * TILES_PER_WARP[pieces]} blocks): "
                   f"{per_block * 98304 / (4 * sms * clock) * 1e6:.2f} us of "
                   f"issue at M=16384 | {card}", flush=True)
+        if "mxu64_kernel" in mangled:
+            blocks, smem, grid = mxu64_occupancy(98304)
+            ops = sass[mangled]
+            total = sum(ops.values())
+            found["mxu64"].append((int(regs), blocks))
+            per_warp = MXU64_TILE * MXU64_PAIR * MXU64_UNITS
+            per_block = total / per_warp
+            print(f"[4 times] mxu64_kernel: {regs} registers, {smem} B "
+                  f"dynamic shared memory, {blocks} blocks/SM "
+                  f"({4 * blocks} warps), grid {grid} at 98,304 blocks; SASS "
+                  f"{total} instructions ({ops['HMMA']} HMMA, "
+                  f"{sum(ops[o] for o in SASS_MEM)} memory, {ops['BRA']} "
+                  f"branches), at most {per_block:.1f} warp instructions a "
+                  f"block (a warp runs each at most once for its {per_warp} "
+                  f"blocks): "
+                  f"{per_block * 98304 / (4 * sms * clock) * 1e6:.2f} us of "
+                  f"issue at M=16384 | {card}", flush=True)
+        hit = floor.search(mangled)
+        if hit:
+            wire = 1 if hit.group(1) == "a" else 2
+            gy, vec16 = int(hit.group(2)), hit.group(3) == "1"
+            key = {1: (1, 1, 3), 2: (2, 1, 3), 4: (2, 2, 3)}[gy]
+            blocks, smem = memfloor_occupancy(wire, S.mode_for(key), vec16)
+            found["memfloor"].append((int(regs), blocks))
+            note = ""
+            if gy == 4:
+                total = sum(sass[mangled].values())
+                per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
+                note = (f"; SASS {total} instructions, at most "
+                        f"{per_mcu:.1f} warp instructions an MCU: "
+                        f"{per_mcu * 16384 / (4 * sms * clock) * 1e6:.2f} us "
+                        f"of issue at M=16384")
+            print(f"[4 times] memfloor_kernel {gy} luma slots "
+                  f"({S.mode_for(key).name}{'/4:4:0' if gy == 2 else ''}) "
+                  f"int{8 * wire} ({'16-byte' if vec16 else 'byte'} stores): "
+                  f"{regs} registers, {smem} B static shared memory, "
+                  f"{blocks} blocks/SM ({blocks * 8} warps){note} | {card}",
+                  flush=True)
         hit = truerez.search(mangled)
         if hit:
             wire = 1 if hit.group(1) == "a" else 2
@@ -1875,7 +1966,8 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
                   f"registers, {smem} B dynamic shared memory, {blocks} "
                   f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
     want = {"epilogue": 32, "dequant": 8, "idct": 1, "color": 10,
-            "scaled": 60, "stacked": 16, "truerez": 16, "mxu2pass": 2}
+            "scaled": 60, "stacked": 16, "truerez": 16, "mxu2pass": 2,
+            "memfloor": 12, "mxu64": 1}
     if {k: len(v) for k, v in found.items()} != want:
         names = ", ".join(f"{len(v)} {k}" for k, v in found.items())
         fail(f"nvcc.log names {names} instantiations, expected {want}")
@@ -1893,7 +1985,10 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
                                         "16-byte/byte stores)"),
                         ("rgb_truerez", "16 (4 colour modes x 2 wires x "
                                         "16-byte/byte stores)"),
-                        ("mxu2pass", "2 (pieces 1, 2)")):
+                        ("mxu2pass", "2 (pieces 1, 2)"),
+                        ("memfloor", "12 (1, 2 and 4 luma slots x 2 wires x "
+                                     "16-byte/byte stores)"),
+                        ("mxu64", "1")):
         regs = [r for r, _ in found[kind.replace("rgb_", "")]]
         blocks = [b for _, b in found[kind.replace("rgb_", "")]]
         print(f"[4 times] {kind}_kernel: {count}, {min(regs)}-"
@@ -2156,6 +2251,62 @@ def phase_ab_times(torch, dev, card: str, times: dict) -> None:
           f"Python loop {us_band(p)}; 30/5 launches | {card}", flush=True)
 
 
+def redesign_times(torch, dev, card: str, times: dict) -> None:
+    """The two kernels redesigned last at a B=256 batch's size: the memory
+    floor at 4:2:0, M=196,608 int16 (the kernel_opt draw) and mxu64 on
+    1,179,648 blocks of the IDCT tool's draw, each beside its plain
+    version and its bound, mxu64 also beside its TF32 ``torch.matmul``
+    yardstick; kept as each one's ``other_geometries`` on the kernels
+    line."""
+    from pim_jpeg_decoder_tpu_torch.ops import kernel_variants as KV
+    from pim_jpeg_decoder_tpu_torch.ops import mxu_idct as X
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, qpool_to_device)
+    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt, mxu_idct_ab
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
+
+    m, mode = 196608, kernel_opt.MODE
+    wire_bytes = m * mode.g * 64 * 2
+    host = kernel_opt.make_inputs(max(2, rotation_count(wire_bytes, dev)), 0,
+                                  m)["i16"]
+    bufs = [(coeffs_to_device(c, dev), torch.from_numpy(qi).to(dev),
+             qpool_to_device(qp, dev)) for c, qi, qp in host]
+    del host
+    k = time_band(lambda b: KV.memfloor(*b, mode), bufs)
+    p = time_band(lambda b: KV.memfloor_reference(*b, mode), bufs, runs=10)
+    out = 3 * mode.luma_slots * 64 * m
+    b = bound(wire_bytes + out, m * mode.luma_slots * 64 * 2)
+    times["memfloor_196608"] = timing(k, p, b)
+    print(f"[4 times] memfloor kernel 4:2:0 M={m} int16 wire: {us_band(k)}"
+          f"/launch ({(wire_bytes + out) / 1e6 / k[0]:.0f} GB/s of "
+          f"{(wire_bytes + out) / 1e6:.1f} MB; {bound_note(b)}); plain "
+          f"PyTorch {us_band(p)}; 30/10 launches over {len(bufs)} rotating "
+          f"inputs | {card}", flush=True)
+    del bufs
+    torch.cuda.empty_cache()
+
+    blocks = m * mxu_idct_ab.MODE.g
+    nbytes = 2 * blocks * 64 * 2                     # int16 in and out
+    rot = [torch.from_numpy(d).to(dev) for d in mxu_idct_ab.make_inputs(
+        max(2, rotation_count(nbytes // 2, dev)), m)]
+    a64 = torch.from_numpy(X.mat64()).to(dev)
+    x64 = [d.float().view(blocks, 64).t().contiguous() for d in rot]
+    with tf32_matmul(torch):
+        lib = time_band(lambda x: a64 @ x, x64)
+    del x64
+    k = time_band(X.mxu64, rot)
+    p = time_band(X.mxu64_reference, rot, runs=10)
+    b = bound(nbytes, 8192 * blocks, TF32_FLOPS)
+    times["mxu64_196608"] = timing(k, p, b, lib[0])
+    print(f"[4 times] IDCT A/B mxu64 4:2:0 M={m} int16: {us_band(k)}/launch "
+          f"({nbytes / 1e6 / k[0]:.0f} GB/s of {nbytes / 1e6:.1f} MB; "
+          f"{bound_note(b)}); plain PyTorch {us_band(p)}; torch.matmul "
+          f"yardstick (TF32, product only) {us_band(lib)}; 30/10 launches "
+          f"over {len(rot)} rotating inputs | {card}", flush=True)
+    del rot
+    torch.cuda.empty_cache()
+
+
 def kernel_bounds(times: dict, card: str) -> None:
     """Each kernel's median time against its bound, and its share of it."""
     for name, t in times.items():
@@ -2256,6 +2407,7 @@ def main() -> int:
         phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
                           times)
         phase_ab_times(torch, dev, card, times)
+        redesign_times(torch, dev, card, times)
         from pim_jpeg_decoder_tpu_torch.ops import _build
         sass = sass_counts(os.path.join(_build.build_dir(), _build.LIB_NAME))
         tile_resources(torch, card, tile_times(torch, dev, card), sass)
@@ -2272,11 +2424,15 @@ def main() -> int:
         "max_abs_err": max_err[name],
         **times[name],
     } for name in KERNELS]
-    for k in kernels:   # the epilogue's other timed geometries
+    for k in kernels:   # other timed geometries
         if k["name"] == JSON_NAMES["raster"]:
             k["geometry"] = "B=256 500x375 4:2:0, scale 1 -> uint8"
             k["other_geometries"] = {JSON_NAMES[g]: times[g] for g in
                                      ("raster_scale2", "raster_crops")}
+        for name, label in (("memfloor", "4:2:0 M=196608 int16"),
+                            ("mxu64", "4:2:0 M=196608 (1,179,648 blocks)")):
+            if k["name"] == JSON_NAMES[name]:
+                k["other_geometries"] = {label: times[f"{name}_196608"]}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

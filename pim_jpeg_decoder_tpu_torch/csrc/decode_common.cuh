@@ -17,8 +17,6 @@
 
 namespace {
 
-constexpr int TILE = 64;  // MCUs per CUDA block
-
 // ops/specs.py
 constexpr int CONST_BITS = 13;
 constexpr int PASS1_BITS = 2;
@@ -87,21 +85,6 @@ __device__ __forceinline__ int32_t element(const int4& v, int j) {
   return static_cast<T>(word >> ((j % per_word) * 8 * sizeof(T)));
 }
 
-// The 64 values of T at src (16-byte aligned), sign-extended, with
-// 16-byte loads.
-template <typename T>
-__device__ __forceinline__ void load_block(const T* __restrict__ src,
-                                           int32_t (&c)[64]) {
-  constexpr int per_vec = 16 / sizeof(T);
-  const int4* vec = reinterpret_cast<const int4*>(src);
-#pragma unroll
-  for (int i = 0; i < 64 / per_vec; ++i) {
-    const int4 v = __ldg(vec + i);
-#pragma unroll
-    for (int j = 0; j < per_vec; ++j) c[i * per_vec + j] = element<T>(v, j);
-  }
-}
-
 // The 64 quantizers of block (m, s) in the int32 pool: row qidx[m], or
 // row 0 with ok = false when qidx[m] is out of range, and that block then
 // decodes against a zero quantizer (as the TPU kernel's one-hot gather
@@ -123,60 +106,6 @@ __device__ __forceinline__ uint32_t dequant(int32_t c, uint32_t q) {
   const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(c) * q);
   return static_cast<uint32_t>(min(max(d, -DEQUANT_CLAMP - 1),
                                    DEQUANT_CLAMP));
-}
-
-// Dequantized coefficients of block (m, s), natural order (v*8 + u).
-template <typename T, int G>
-__device__ __forceinline__ void dequant_block(
-    const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
-    const int32_t* __restrict__ qpool, int num_q, long long m, int s,
-    uint32_t (&deq)[64]) {
-  int32_t c[64];
-  load_block<T>(coeffs + (static_cast<size_t>(m) * G + s) * 64, c);
-  bool ok;
-  const int4* qrow =
-      reinterpret_cast<const int4*>(quant_row<G>(qidx, qpool, num_q, m, s, ok));
-
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int4 qv = ok ? __ldg(qrow + i) : make_int4(0, 0, 0, 0);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      deq[4 * i + j] = dequant(
-          c[4 * i + j], static_cast<uint32_t>(element<int32_t>(qv, j)));
-    }
-  }
-}
-
-// 2-pass IDCT + clamp of one dequantized block (natural order v*8 + u):
-// spat[px*8 + py], column-major.
-__device__ __forceinline__ void idct_block(const uint32_t (&deq)[64],
-                                           int32_t (&spat)[64]) {
-  // Pass 1 down each column of vertical frequencies: w[py*8 + u].
-  int32_t w[64];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    uint32_t in[8];
-    int32_t out[8];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) in[v] = deq[v * 8 + u];
-    idct_1d<CONST_BITS - PASS1_BITS>(in, out);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) w[r * 8 + u] = out[r];
-  }
-  // Pass 2 along each spatial row: spat[px*8 + py], clamped.
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    uint32_t in[8];
-    int32_t out[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) in[u] = static_cast<uint32_t>(w[r * 8 + u]);
-    idct_1d<CONST_BITS + PASS1_BITS + 3>(in, out);
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      spat[p * 8 + r] = min(max(out[p], SAMPLE_MIN), SAMPLE_MAX);
-    }
-  }
 }
 
 __device__ __forceinline__ uint8_t to_u8(int32_t v) {

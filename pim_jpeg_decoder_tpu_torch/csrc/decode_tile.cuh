@@ -6,8 +6,7 @@
 // lane.  The design and
 // its reasons are in decode_kernel.cu's header.  The arithmetic is
 // decode_common.cuh's (dequant, idct_1d, bt601, chroma_pix), unchanged;
-// the per-thread helpers there (load_block, dequant_block, idct_block,
-// store_rgb's callers) stay as they are for the other kernels.
+// its byte store (store_rgb) is the fallback of the 16-byte stores.
 
 #pragma once
 
@@ -70,7 +69,8 @@ __device__ __forceinline__ int tile_valid(long long m0, long long num_mcus) {
 // bytes, 16-byte aligned: kMcuBytes is a multiple of 64) into shared
 // memory with 16-byte asynchronous copies, lane i on chunk i; meanwhile
 // stage each MCU's quantizer row.  Returns after both have landed.  L is
-// TileLayout, or a layout with the same members and another scratch.
+// TileLayout, or a layout with the same members and another scratch; a
+// layout whose kQrows is negative stages no rows and qidx is not read.
 template <typename T, int G, typename L = TileLayout<T, G>>
 __device__ __forceinline__ void load_tile(const T* __restrict__ coeffs,
                                           const int32_t* __restrict__ qidx,
@@ -92,13 +92,15 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ coeffs,
     }
   }
   __pipeline_commit();
-  if (threadIdx.x < TILE_MCUS) {
-    int row = -1;
-    if (static_cast<int>(threadIdx.x) < valid) {
-      const int qi = __ldg(qidx + m0 + threadIdx.x);
-      if (static_cast<unsigned>(qi) < static_cast<unsigned>(num_q)) row = qi;
+  if constexpr (L::kQrows >= 0) {
+    if (threadIdx.x < TILE_MCUS) {
+      int row = -1;
+      if (static_cast<int>(threadIdx.x) < valid) {
+        const int qi = __ldg(qidx + m0 + threadIdx.x);
+        if (static_cast<unsigned>(qi) < static_cast<unsigned>(num_q)) row = qi;
+      }
+      reinterpret_cast<int32_t*>(smem + L::kQrows)[threadIdx.x] = row;
     }
-    reinterpret_cast<int32_t*>(smem + L::kQrows)[threadIdx.x] = row;
   }
   __pipeline_wait_prior(0);
   __syncthreads();

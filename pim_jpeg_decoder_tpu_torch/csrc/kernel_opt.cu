@@ -1,6 +1,7 @@
 // Experiment kernels of the fused RGB decode for Hopper (sm_90a): the
-// layout-matched memory floor and two restructurings of rgb_kernel
-// (decode_kernel.cu), timed against it by tools/kernel_opt.py.
+// memory floor of the tiled decode kernels' pattern and two
+// restructurings of rgb_kernel (decode_kernel.cu), timed against it by
+// tools/kernel_opt.py.
 //
 // Replaces the Pallas kernels of the repository's tools/kernel_opt.py:
 //   memfloor_kernel    <- _kernel_memfloor: no decode; each luma slot's
@@ -17,20 +18,42 @@
 //
 // What bounds them on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4;
 // PERF.md): the floor, bytes (a 16,384-MCU 4:2:0 launch reads 12.6 MB of
-// int16 wire and writes 12.6 MB of RGB, in 19.1-19.3 us); truerez and
-// stacked, like the tiled rgb_kernel, one wave's latency at M=16,384 and
-// issue at M=196,608.
-//   - memfloor_kernel is rgb_kernel's first form (a thread per 8x8
-//     block; decode_kernel.cu now holds a tiled redesign) with the decode
-//     taken out and its memory traffic left in: thread (slot s, MCU m)
-//     of a TILE-MCU block reads its block with the same 16-byte loads,
-//     parks the low bytes in shared memory, and the block writes every
-//     output byte once through store_rgb (decode_common.cuh), that
-//     form's store loop: bytes, MCU index fastest across a warp, three
-//     planes.  The wrapped sum is its only arithmetic (uint32_t; the low
-//     byte of a sum depends on the low bytes of its terms only).  It keeps
-//     measuring that access pattern (no wider stores), so the tiled
-//     rgb_kernel can beat it.
+// int16 wire and writes 12.6 MB of RGB: 7.54 us at 3.35 TB/s); truerez
+// and stacked, like the tiled rgb_kernel, one wave's latency at M=16,384
+// and issue at M=196,608.
+//   - memfloor_kernel moves the bytes of the tiled decode kernels
+//     (decode_tile.cuh) in their pattern, with the decode taken out: a
+//     256-thread block copies a TILE_MCUS tile of the wire with load_tile
+//     (16-byte cp.async, one wait a tile, the MCU_PAD-padded [MCU][slot]
+//     [64] copy; FloorLayout holds nothing else and no qidx is staged),
+//     then writes 16-byte row pieces to the three planes, every warp
+//     store filling whole 32-byte sectors (floor_store16): lane l of warp
+//     s sums rows 4j .. 4j + 3 of luma slot s and of both chroma slots of
+//     16 MCUs, a 4- or 8-byte shared read an MCU and slot (floor_mcu's
+//     order keeps the two halves of a warp 16 banks apart:
+//     floor_conflict_free), byte by byte in 16-bit lanes, and a 4x4 byte
+//     transpose of four MCUs' words gives a word of each row.  Byte stores
+//     through store_rgb when M % 16 != 0 or the output is off the 16-byte
+//     grid, as store_tile_rgb does.  The wrapped sum is its only
+//     arithmetic (the low byte of a sum depends on the low bytes of its
+//     terms only).  A decode kernel moves these bytes and more work, so
+//     it cannot beat this floor by its pattern; a share over 100% is a
+//     finding.  The first form (rgb_kernel's first, per-thread pattern: a
+//     thread per 8x8 block of a 64-MCU block, 64 registers of 16-byte
+//     loads, the low bytes parked in shared memory, byte stores) took
+//     15.98-16.05 [19.01-19.07] us int8 [int16] at 4:2:0 M=16,384 and
+//     144.1-144.3 us at M=196,608 int16, and the tiled rgb_kernel ran at
+//     113-117% of it at M=2,048; this one 11.31-11.42 [13.06-13.10] and
+//     122.8-122.9 us, 50% [58%] and 73% of the byte bound
+//     (tools/decode_ab.py, H100 80GB HBM3, 700 W, digests equal), and no
+//     slower than rgb_kernel at any kernel_opt.sweep() size on either wire
+//     (PERF.md).  At M=196,608 its reads and writes do not overlap:
+//     variants without the stores and without the loads (a throwaway
+//     script, numbers not kept) took times that add up to its own, the
+//     writes the larger part, so its 32-byte row pieces (one sector of a
+//     row a tile) write slower than its contiguous reads; at M=16,384 it
+//     is one wave that loads, then stores.  22-54 registers, 4-8 blocks an
+//     SM.
 //   - rgb_truerez_kernel keeps the TPU kernel's idea (each chroma
 //     sample's three BT.601 terms computed once, at chroma resolution,
 //     into a buffer, then added to every luma pixel the sample serves) on
@@ -80,7 +103,6 @@
 //     four chains a lane do not lift one wave off its latency floor, and
 //     the lost warps cost more once waves overlap.  20.1 [21.6] us at
 //     4:2:0 M=16,384 int8 [int16], was 47.3 [49.0].
-// memfloor is the simple, exact first form.
 
 #include <type_traits>
 
@@ -91,35 +113,173 @@ namespace {
 
 constexpr int STACK_MIN_BLOCKS = 2;   // resident stacked blocks an SM must fit
 
+// memfloor_kernel's shared memory: the tile's wire bytes as load_tile
+// copies them ([MCU][slot][64] of T, MCU_PAD bytes after each MCU), and
+// nothing else: no transpose scratch, samples or quantizer rows.
+template <typename T, int G>
+struct FloorLayout {
+  static constexpr int kMcuBytes = G * 64 * static_cast<int>(sizeof(T));
+  static constexpr int kMcuStride = kMcuBytes + MCU_PAD;
+  static constexpr int kCoeffs = 0;
+  static constexpr int kQrows = -1;   // load_tile stages no rows
+  static constexpr int kBytes = TILE_MCUS * kMcuStride;
+};
+
+constexpr int FLOOR_HALF = TILE_MCUS / 2;   // MCUs of one 16-byte store
+
+// The 16-byte store's lanes: lane l of warp s takes rows 4j .. 4j + 3
+// (j = l & 15) of luma slot s for the tile's MCUs 16h .. 16h + 15 (h = l >>
+// 4), so the 32 lanes of one store fill 16 rows' 32 bytes.  At step i
+// (0..15) lane l reads MCU floor_mcu(l, i): the second half starts 4 MCUs
+// on, which puts its reads 16 banks away from the first half's (MCU
+// strides are 4 words past a multiple of 16, so MCUs 4 or 20 apart are 16
+// banks apart); its result words come out rotated by one and are put back
+// with selects.
+__host__ __device__ constexpr int floor_mcu(int lane, int i) {
+  return (lane >> 4) * FLOOR_HALF + ((i + 4 * (lane >> 4)) & 15);
+}
+
+// The claims: at every step and for every slot (luma and both chroma),
+// the 32 lanes' 4-byte reads (int8: rows 4j .. 4j + 3) or each half
+// warp's 8-byte reads (int16) fall on distinct banks.
+template <typename T, int G>
+constexpr bool floor_conflict_free() {
+  using L = FloorLayout<T, G>;
+  if (TILE_MCUS != 2 * FLOOR_HALF || FLOOR_HALF != 16) return false;
+  if (L::kMcuStride % VEC != 0) return false;
+  constexpr int kWidth = static_cast<int>(sizeof(T));   // words a read
+  for (int s = 0; s < G; ++s) {
+    for (int i = 0; i < FLOOR_HALF; ++i) {
+      int w[32] = {};
+      for (int l = 0; l < 32; ++l) {
+        w[l] = (floor_mcu(l, i) * L::kMcuStride +
+                (s * 64 + 4 * (l & 15)) * kWidth) / 4;
+      }
+      if (kWidth == 1 && !phase_conflict_free(w, 32, 1)) return false;
+      if (kWidth == 2 && (!phase_conflict_free(w, 16, 2) ||
+                          !phase_conflict_free(w + 16, 16, 2))) {
+        return false;
+      }
+    }
+  }
+  return true;
+}
+
+// u8(a + b + c) of each byte: the even and the odd bytes summed apart in
+// 16-bit lanes (at most 765: no carry reaches the next byte kept).
+__device__ __forceinline__ uint32_t bytes_sum(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  constexpr uint32_t kEven = 0x00ff00ffu, kOdd = 0xff00ff00u;
+  const uint32_t even = (a & kEven) + (b & kEven) + (c & kEven);
+  const uint32_t odd = (a & kOdd) + (b & kOdd) + (c & kOdd);
+  return (even & kEven) | (odd & kOdd);
+}
+
+// Byte r of the result: the low byte of the int32 sum of row 4j + r of
+// luma slot s and of both chroma slots, p pointing at rows 4j .. 4j + 3
+// of slot 0 of one MCU (slots kSlot bytes apart).  The low byte of a sum
+// is the sum of the low bytes: int8 words sum byte by byte, int16 ones in
+// their even bytes, gathered.
 template <typename T, int GY>
-__global__ void __launch_bounds__((GY + 2) * TILE)
+__device__ __forceinline__ uint32_t floor_word(const uint8_t* p, int s) {
+  constexpr int kSlot = 64 * static_cast<int>(sizeof(T));
+  if constexpr (sizeof(T) == 1) {
+    const auto at = [&](int slot) {
+      return *reinterpret_cast<const uint32_t*>(p + slot * kSlot);
+    };
+    return bytes_sum(at(s), at(GY), at(GY + 1));
+  } else {
+    const auto at = [&](int slot) {
+      return *reinterpret_cast<const uint2*>(p + slot * kSlot);
+    };
+    const uint2 a = at(s), b = at(GY), c = at(GY + 1);
+    constexpr uint32_t kEven = 0x00ff00ffu;
+    const uint32_t lo = (a.x & kEven) + (b.x & kEven) + (c.x & kEven);
+    const uint32_t hi = (a.y & kEven) + (b.y & kEven) + (c.y & kEven);
+    return __byte_perm(lo, hi, 0x6420);
+  }
+}
+
+// The 16-byte store (every output row 16-byte aligned, valid a multiple of
+// 16): lane l of warp s < GY sums rows 4j .. 4j + 3 of slot s and the two
+// chroma slots for its 16 MCUs, four MCUs at a time (a 4x4 byte transpose
+// turns four MCUs' words into a word of each row), and writes each row's 16
+// bytes into the three planes.
+template <typename T, int GY>
+__device__ __forceinline__ void floor_store16(const uint8_t* smem,
+                                              uint8_t* __restrict__ out,
+                                              long long m0,
+                                              long long num_mcus,
+                                              int valid) {
+  using L = FloorLayout<T, GY + 2>;
+  const int s = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = lane & 15, h = lane >> 4;
+  if (s >= GY || h * FLOOR_HALF >= valid) return;
+  const uint8_t* col = smem + L::kCoeffs + j * 4 * static_cast<int>(sizeof(T));
+  uint32_t acc[4][4];   // [row r][word q of the rotated order]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      w[e] = floor_word<T, GY>(
+          col + floor_mcu(lane, 4 * q + e) * L::kMcuStride, s);
+    }
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+    const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+    acc[0][q] = __byte_perm(t0, t2, 0x5410);
+    acc[1][q] = __byte_perm(t0, t2, 0x7632);
+    acc[2][q] = __byte_perm(t1, t3, 0x5410);
+    acc[3][q] = __byte_perm(t1, t3, 0x7632);
+  }
+  const size_t plane = static_cast<size_t>(GY) * 64 * num_mcus;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // Word p of the row holds MCUs 4p .. 4p + 3 of the half: the second
+    // half computed word p into acc[(p + 3) & 3].
+    const int4 v = make_int4(
+        static_cast<int>(h ? acc[r][3] : acc[r][0]),
+        static_cast<int>(h ? acc[r][0] : acc[r][1]),
+        static_cast<int>(h ? acc[r][1] : acc[r][2]),
+        static_cast<int>(h ? acc[r][2] : acc[r][3]));
+    uint8_t* dst = out + static_cast<size_t>(s * 64 + 4 * j + r) * num_mcus +
+                   m0 + h * FLOOR_HALF;
+    *reinterpret_cast<int4*>(dst) = v;
+    *reinterpret_cast<int4*>(dst + plane) = v;
+    *reinterpret_cast<int4*>(dst + 2 * plane) = v;
+  }
+}
+
+// The floor of the tiled decode kernels' memory pattern: load_tile's copy
+// of a TILE_MCUS tile (no qidx), then the 16-byte row stores of
+// floor_store16 (VEC16), or store_rgb's byte stores, which also mask the
+// ragged last tile.
+template <typename T, int GY, bool VEC16>
+__global__ void __launch_bounds__(TILE_THREADS, TILE_MIN_BLOCKS)
 memfloor_kernel(const T* __restrict__ coeffs, uint8_t* __restrict__ out,
                 long long num_mcus) {
   constexpr int G = GY + 2;
-  __shared__ uint8_t low[G * 64 * TILE];   // [slot][coefficient][MCU]
-
-  const int ml = threadIdx.x % TILE;
-  const long long m0 = static_cast<long long>(blockIdx.x) * TILE;
-  if (m0 + ml < num_mcus) {
-    const int s = threadIdx.x / TILE;
-    int32_t c[64];
-    load_block<T>(coeffs + (static_cast<size_t>(m0 + ml) * G + s) * 64, c);
-#pragma unroll
-    for (int k = 0; k < 64; ++k) {
-      low[(s * 64 + k) * TILE + ml] = static_cast<uint8_t>(c[k]);
-    }
+  using L = FloorLayout<T, G>;
+  __shared__ __align__(16) uint8_t smem[L::kBytes];
+  const long long m0 = static_cast<long long>(blockIdx.x) * TILE_MCUS;
+  const int valid = tile_valid(m0, num_mcus);
+  load_tile<T, G, L>(coeffs, nullptr, 0, m0, valid, smem);
+  if constexpr (VEC16) {
+    floor_store16<T, GY>(smem, out, m0, num_mcus, valid);
+  } else {
+    store_rgb<GY, 64, TILE_MCUS, TILE_THREADS>(
+        out, m0, num_mcus,
+        [&](int sl, int k, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
+          const T* c = reinterpret_cast<const T*>(smem + L::kCoeffs +
+                                                  mj * L::kMcuStride);
+          const uint32_t sum = static_cast<uint32_t>(c[sl * 64 + k]) +
+                               static_cast<uint32_t>(c[GY * 64 + k]) +
+                               static_cast<uint32_t>(c[(GY + 1) * 64 + k]);
+          r = g = b = static_cast<uint8_t>(sum);
+        });
   }
-  __syncthreads();
-
-  store_rgb<GY, 64, TILE, G * TILE>(
-      out, m0, num_mcus,
-      [&](int sl, int k, int mj, uint8_t& r, uint8_t& g, uint8_t& b) {
-        const uint32_t sum =
-            static_cast<uint32_t>(low[(sl * 64 + k) * TILE + mj]) +
-            low[(GY * 64 + k) * TILE + mj] +
-            low[((GY + 1) * 64 + k) * TILE + mj];
-        r = g = b = static_cast<uint8_t>(sum);
-      });
 }
 
 // rgb_truerez_kernel's chroma terms: int16 [3][64 chroma pixels][TILE_MCUS]
@@ -497,6 +657,9 @@ template <typename T>
 using KernelFn = void (*)(const T*, const int32_t*, const int32_t*, int,
                           uint8_t*, long long);
 
+template <typename T>
+using MemfloorFn = void (*)(const T*, uint8_t*, long long);
+
 enum class Variant { kMemfloor, kTruerez, kStacked };
 
 // The tile kernel (truerez or stacked) of one mode and store form and its
@@ -541,23 +704,32 @@ struct Args {
   cudaStream_t stream;
 };
 
+// memfloor_kernel of one mode, wire and store form (16-byte stores or
+// bytes).  The bank claims of its tile reads are checked here, at build
+// time.
+template <typename T, int GY>
+MemfloorFn<T> memfloor_fn(bool vec16) {
+  static_assert(floor_conflict_free<T, GY + 2>(),
+                "memfloor tile reads: bank conflicts");
+  return vec16 ? memfloor_kernel<T, GY, true> : memfloor_kernel<T, GY, false>;
+}
+
 template <typename T, int H, int V>
 int launch(Variant var, const Args& a) {
-  constexpr int G = H * V + 2;
   const T* c = static_cast<const T*>(a.coeffs);
+  // 16-byte row stores when every output row is 16-byte aligned.
+  const bool vec16 = a.num_mcus % VEC == 0 &&
+                     reinterpret_cast<uintptr_t>(a.out) % VEC == 0;
+  const unsigned blocks = grid(a.num_mcus, TILE_MCUS);
   if (var == Variant::kMemfloor) {
-    const unsigned blocks = grid(a.num_mcus, TILE);
-    memfloor_kernel<T, H * V><<<blocks, G * TILE, 0, a.stream>>>(
+    memfloor_fn<T, H * V>(vec16)<<<blocks, TILE_THREADS, 0, a.stream>>>(
         c, a.out, a.num_mcus);
   } else {
-    // 16-byte row stores when every output row is 16-byte aligned.
-    const bool vec16 = a.num_mcus % VEC == 0 &&
-                       reinterpret_cast<uintptr_t>(a.out) % VEC == 0;
     KernelFn<T> kernel;
     int smem;
     const cudaError_t e = pick_tile_kernel<T, H, V>(var, vec16, kernel, smem);
     if (e != cudaSuccess) return e;
-    kernel<<<grid(a.num_mcus, TILE_MCUS), TILE_THREADS, smem, a.stream>>>(
+    kernel<<<blocks, TILE_THREADS, smem, a.stream>>>(
         c, a.qidx, a.qpool, a.num_q, a.out, a.num_mcus);
   }
   return cudaSuccess;
@@ -611,9 +783,23 @@ int tile_occupancy(Variant var, int wire_bytes, int h, int v, int vec16,
     constexpr int H = decltype(hc)::value, V = decltype(vc)::value;
     const auto query = [&](auto wire) {
       using T = decltype(wire);
+      cudaError_t e;
+      if (var == Variant::kMemfloor) {
+        // Static shared memory: the floor's tile.
+        const void* kernel =
+            reinterpret_cast<const void*>(memfloor_fn<T, H * V>(vec16 != 0));
+        cudaFuncAttributes attr;
+        e = cudaFuncGetAttributes(&attr, kernel);
+        *smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+        if (e == cudaSuccess) {
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              blocks_per_sm, kernel, TILE_THREADS, 0);
+        }
+        return static_cast<int>(e);
+      }
       KernelFn<T> kernel;
       int smem = 0;
-      cudaError_t e = pick_tile_kernel<T, H, V>(var, vec16 != 0, kernel, smem);
+      e = pick_tile_kernel<T, H, V>(var, vec16 != 0, kernel, smem);
       if (e == cudaSuccess) {
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             blocks_per_sm, kernel, TILE_THREADS, smem);
@@ -663,6 +849,13 @@ extern "C" int pjt_cuda_stacked_occupancy(int wire_bytes, int h, int v,
                                           int vec16, int* blocks_per_sm,
                                           int* smem_bytes) {
   return tile_occupancy(Variant::kStacked, wire_bytes, h, v, vec16,
+                        blocks_per_sm, smem_bytes);
+}
+
+extern "C" int pjt_cuda_memfloor_occupancy(int wire_bytes, int h, int v,
+                                           int vec16, int* blocks_per_sm,
+                                           int* smem_bytes) {
+  return tile_occupancy(Variant::kMemfloor, wire_bytes, h, v, vec16,
                         blocks_per_sm, smem_bytes);
 }
 

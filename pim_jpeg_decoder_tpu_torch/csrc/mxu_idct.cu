@@ -80,11 +80,65 @@
 // level with the butterfly stage at M=196,608); pieces 2 by issue (1,124
 // SASS instructions for a warp's 16 blocks, four products and their
 // recombination a pass).
-// mxu64_kernel keeps the first form's tile: a CUDA block stages 64 blocks
-// (8 KB of int16) into shared memory as float32 with 16-byte loads, its
-// four warps run the MMAs out of shared memory, and the results leave with
-// 16-byte stores.  Its shared rows are padded to 68 words, so the fragment
-// loads of a warp fall on 32 different banks.
+// mxu64_kernel's first form was a persistent grid of at most 528 CUDA
+// blocks, each converting the 16 KB basis to TF32 in shared memory, then
+// walking 64-block tiles staged as float32 with synchronous 16-byte loads,
+// two __syncthreads a tile and the results back through the tile: 20.45
+// us at M=16,384 on an H100 80GB HBM3 at 700 W (PERF.md), 37% of the byte
+// bound.  The redesign takes mxu2pass_kernel's shape where the card
+// agreed (variants timed against each other in one call each by a
+// throwaway script, their numbers not kept):
+//   - short-lived warps: a warp owns M64_UNITS units of M64_PAIR MMA tiles
+//     of 16 blocks (64 blocks, 8 KB of int16), copies every unit's valid
+//     blocks at once, works through them and exits;
+//   - loads: 16-byte cp.async into rows 144 bytes apart, so that the 8 rows
+//     of an A fragment load fall on 8 groups of banks, one commit group a
+//     unit.  Bulk copies (cp.async.bulk on an mbarrier a unit, as
+//     mxu2pass_kernel does) were built and lost: a contiguous copy cannot
+//     pad the rows, so they took a copy a block (128 bytes: slower at both
+//     sizes) or, with rows interleaved in groups so that a copy held 4
+//     blocks, one per 512 bytes (slower at M=16,384, level at 196,608);
+//   - the basis is the design question this kernel adds: 64 x 64 TF32, 16
+//     KB, read as 64 B of fragments an MMA.  Each CUDA block of M64_WARPS
+//     warps stages it once in fragment order (one 8-byte load an MMA), with
+//     coalesced 16-byte loads all issued before the first conversion, while
+//     its copies are in flight, behind the kernel's one __syncthreads; the
+//     M64_PAIR tiles of a unit share every B fragment (64 accumulators a
+//     lane), so a block's 256 8x8 blocks pay 64 bytes each of L2 reads for
+//     the basis and 4 shared-memory wavefronts each for its fragments.
+//     Staging with 4-byte loads cost far more than this form; a kernel
+//     that skipped the staging (wrong bytes) was faster by less than a
+//     tenth at both sizes.  Eight warps a block (half the staging traffic)
+//     lost at M=16,384 (192 blocks on 132 SMs) and was about level at
+//     M=196,608; 3 blocks an SM and one tile a unit lost.  A cluster of 2
+//     or 4 CTAs that staged a share each into every CTA's shared memory
+//     (distributed shared memory, the L2 reads halved or quartered) lost at
+//     both sizes, the more CTAs the more: the cluster barrier cost more
+//     than the reads it saved.  A TMA multicast would need the same
+//     barrier.  Forming B in registers from kron(A, A)'s factors (A[nt][kt] *
+//     A[gid][tid], exact) would drop the staging, but assumes the structure
+//     of mat, which the C entry point cannot check without a copy to the
+//     host; it is not taken, and any mat is computed as given;
+//   - A fragments read straight from the int16 tile (2-byte loads) and
+//     rounded in registers (tf32_rna);
+//   - results scaled, rounded, clipped and converted by one saturating
+//     cvt.rni.sat.s8.f32 each, packed as int16 pairs by one prmt, and
+//     stored from the accumulators: lanes tid and tid ^ 1 swap one word,
+//     so each 8-byte warp store writes a whole 32-byte sector of each of
+//     16 blocks, and four of them a block's 128 bytes.  No __syncthreads
+//     between tiles, no result through shared memory.
+// The arithmetic is the first form's: the same TF32 operands (cvt.rna's
+// rounding), mma.sync.m16n8k8 into each accumulator over k-steps 0..7 in
+// order, __fmul_rn by inv and rintf's rounding, so the output equals the
+// first form's byte for byte.  On an H100 80GB HBM3 at 700 W (PERF.md;
+// tools/decode_ab.py against the first form, digests equal): 15.36-15.54
+// us at M=16,384 (was 20.40-20.45) and 116.6 us at M=196,608 (was
+// 179.2-179.3), 49% and 77% of the byte bound, against 21.9 and 220.0 us
+// for the TF32 torch.matmul product alone; 128 registers, 53,248 B of
+// dynamic shared memory, 4 blocks an SM, 28.7 warp instructions a block (4
+// HMMA).  What bounds it now: at M=16,384 one wave of copies, staging,
+// four HMMA a block and stores; at M=196,608 bytes, with the staging's L2
+// reads (64 bytes a block) on top.
 
 #include <cstdint>
 
@@ -94,12 +148,22 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE_BLOCKS = WARPS * 16;   // 8x8 blocks per CUDA block
-constexpr int CHUNKS = TILE_BLOCKS * 8;   // 16-byte chunks of a tile
-constexpr int ROW64 = 68;                 // padded row of the 64-point tiles
-constexpr int MXU64_MAX_GRID = 132 * 4;   // blocks walk the tiles beyond
+// mxu64_kernel: CUDA blocks of M64_WARPS warps sharing one copy of the
+// basis in shared memory; each warp takes M64_UNITS units of M64_PAIR MMA
+// tiles of M64_TILE blocks side by side (the tiles of a unit share every
+// basis fragment), each unit one cp.async group.
+constexpr int M64_WARPS = 4;
+constexpr int M64_THREADS = M64_WARPS * 32;
+constexpr int M64_MIN_BLOCKS = 4;         // resident blocks an SM must fit
+constexpr int M64_TILE = 16;              // blocks an MMA tile (A's rows)
+constexpr int M64_PAIR = 2;               // MMA tiles a unit
+constexpr int M64_UNIT = M64_TILE * M64_PAIR;
+constexpr int M64_UNITS = 2;              // units a warp
+constexpr int M64_WARP_BLOCKS = M64_UNIT * M64_UNITS;
+constexpr int M64_ROW = 144;              // bytes a block in shared memory
+constexpr int M64_BASIS = 64 * 32 * 8;    // bytes of the fragment-order basis
+constexpr int M64_SMEM =
+    M64_BASIS + M64_WARPS * M64_WARP_BLOCKS * M64_ROW;   // dynamic bytes
 
 // mxu2pass_kernel: CUDA blocks of M2_WARPS warps, each warp with its own
 // kTiles tiles of M2_TILE blocks in shared memory and its own pass-1
@@ -178,52 +242,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n\t}"
         : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
-}
-
-// int16 blocks [b0, b0 + nb) -> float32 rows of `row` words in `tile`
-// (blocks past nb are zeros).
-__device__ __forceinline__ void load_tile(const int16_t* __restrict__ src,
-                                          int nb, float* tile, int row) {
-  for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-    const int blk = c / 8, e = (c % 8) * 8;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (blk < nb) v = __ldg(reinterpret_cast<const int4*>(src) + c);
-    const uint32_t w[4] = {static_cast<uint32_t>(v.x),
-                           static_cast<uint32_t>(v.y),
-                           static_cast<uint32_t>(v.z),
-                           static_cast<uint32_t>(v.w)};
-    float* dst = tile + blk * row + e;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dst[2 * j] = static_cast<float>(static_cast<int16_t>(w[j] & 0xffffu));
-      dst[2 * j + 1] = static_cast<float>(static_cast<int16_t>(w[j] >> 16));
-    }
-  }
-}
-
-// float32 rows of `row` words (integers in the int16 range) -> int16
-// blocks [b0, b0 + nb).
-__device__ __forceinline__ void store_tile(const float* tile, int row,
-                                           int nb,
-                                           int16_t* __restrict__ dst) {
-  for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-    const int blk = c / 8, e = (c % 8) * 8;
-    if (blk >= nb) continue;
-    const float* s = tile + blk * row + e;
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = (static_cast<uint32_t>(static_cast<int>(s[2 * j])) & 0xffffu) |
-             (static_cast<uint32_t>(static_cast<int>(s[2 * j + 1])) << 16);
-    }
-    reinterpret_cast<int4*>(dst)[c] =
-        make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
-                  static_cast<int>(w[2]), static_cast<int>(w[3]));
-  }
-}
-
-__device__ __forceinline__ float clip_sample(float y) {
-  return fminf(fmaxf(y, -128.0f), 127.0f);
 }
 
 // jnp.floor(x / 256.0) and x - hi * 256.0, exactly.
@@ -516,67 +534,191 @@ mxu2pass_kernel(const int16_t* __restrict__ deq,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-mxu64_kernel(const int16_t* __restrict__ deq, const float* __restrict__ mat,
-             int16_t* __restrict__ out, long long num_blocks, float inv) {
-  __shared__ uint32_t basis[64 * ROW64];   // kron(A, A)[o][i] as TF32
-  __shared__ float tile[TILE_BLOCKS * ROW64];
-  for (int i = threadIdx.x; i < 64 * 64; i += THREADS) {
-    basis[(i / 64) * ROW64 + i % 64] = tf32(__ldg(mat + i));
+// --- mxu64_kernel -------------------------------------------------------------
+//
+// [16 blocks, 64] x kron(A, A)^T a tile: A operand row = block, column k =
+// input index (v*8 + h); B (k, n = output index r*8 + p) = mat[n][k].  A
+// warp's blocks sit M64_ROW bytes apart in shared memory (128 and a pad of
+// 16, 4 words past a multiple of 32), so the 8 rows of a fragment load fall
+// on 8 groups of banks.  The basis sits in fragment order: word pair
+// (nt*8 + kt)*32 + lane is lane's (b0, b1) of n-step nt and k-step kt, one
+// 8-byte load.
+
+// Shared-memory byte of lane's A fragment i (0..3) of k-step kt, from its
+// tile's first block: (row gid or gid + 8, column kt*8 + tid or + 4).
+__host__ __device__ constexpr int m64_a_byte(int lane, int i, int kt) {
+  return ((lane >> 2) + 8 * (i & 1)) * M64_ROW +
+         (kt * 8 + (lane & 3) + 4 * (i >> 1)) * 2;
+}
+
+// The claims: each A fragment load (32 lanes, 2-byte, lanes of one word
+// share it) and each basis load (two phases of 16 lanes, 8-byte) falls on
+// distinct banks; rows and the basis keep the copies' 16-byte alignment.
+constexpr bool mxu64_conflict_free() {
+  if (M64_ROW % 16 != 0 || M64_BASIS % 16 != 0) return false;
+  for (int kt = 0; kt < 8; ++kt) {
+    for (int i = 0; i < 4; ++i) {
+      int w[32] = {};
+      for (int l = 0; l < 32; ++l) w[l] = m64_a_byte(l, i, kt) / 4;
+      if (!phase_conflict_free(w, 32, 1)) return false;
+    }
   }
-  const int lane = threadIdx.x % 32, gid = lane >> 2, tid = lane & 3;
-  const int wrow = (threadIdx.x / 32) * 16;   // the warp's first block
-  const long long tiles = (num_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long b0 = t * TILE_BLOCKS;
-    const long long left = num_blocks - b0;
-    const int nb = left < TILE_BLOCKS ? static_cast<int>(left) : TILE_BLOCKS;
-    __syncthreads();   // the previous tile's stores have read `tile`
-    load_tile(deq + b0 * 64, nb, tile, ROW64);
-    __syncthreads();
-    // [16 blocks, 64] x kron(A, A)^T: A operand row = block, column =
-    // input index; B (k = input index, n = output index) = basis[n][k].
-    float acc[8][4];
+  for (int half = 0; half < 32; half += 16) {
+    int w[16] = {};
+    for (int l = 0; l < 16; ++l) w[l] = 2 * (half + l);
+    if (!phase_conflict_free(w, 16, 2)) return false;
+  }
+  return true;
+}
+static_assert(mxu64_conflict_free(), "mxu64 shared-memory banks");
+static_assert(M64_UNIT * 8 % 32 == 0, "whole rounds of 16-byte copies");
+
+// A unit's blocks through the product: M64_PAIR tiles, every accumulator
+// summed over k-steps 0..7 in order (the first form's contraction), then
+// y * inv rounded, clipped and converted by to_sample and stored straight
+// from the accumulators: lanes tid and tid ^ 1 swap one word so that each
+// holds 8 contiguous bytes, and each warp store writes 32 contiguous bytes
+// (a whole sector) of each of 16 blocks.  The first nb blocks are stored.
+__device__ __forceinline__ void mxu64_unit(const uint8_t* tile,
+                                           const uint2* basis,
+                                           int16_t* __restrict__ dst, int nb,
+                                           int lane, float inv) {
+  float acc[M64_PAIR][8][4];
+#pragma unroll
+  for (int j = 0; j < M64_PAIR; ++j) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+      for (int i = 0; i < 4; ++i) acc[j][n][i] = 0.0f;
     }
-    const float* rows = tile + wrow * ROW64;
+  }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int col = k * 8 + tid;
-      const uint32_t a[4] = {tf32(rows[gid * ROW64 + col]),
-                             tf32(rows[(gid + 8) * ROW64 + col]),
-                             tf32(rows[gid * ROW64 + col + 4]),
-                             tf32(rows[(gid + 8) * ROW64 + col + 4])};
+  for (int kt = 0; kt < 8; ++kt) {
+    uint32_t a[M64_PAIR][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint32_t* bn = basis + (n * 8 + gid) * ROW64 + col;
-        const uint32_t b[2] = {bn[0], bn[4]};
-        mma(acc[n], a, b, acc[n]);
+    for (int j = 0; j < M64_PAIR; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int16_t x = *reinterpret_cast<const int16_t*>(
+            tile + j * M64_TILE * M64_ROW + m64_a_byte(lane, i, kt));
+        a[j][i] = tf32_rna(static_cast<float>(x));
       }
     }
-    __syncwarp();
-    float* dst = tile + wrow * ROW64;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const int o = n * 8 + 2 * tid;
-      dst[gid * ROW64 + o] = clip_sample(rintf(__fmul_rn(acc[n][0], inv)));
-      dst[gid * ROW64 + o + 1] =
-          clip_sample(rintf(__fmul_rn(acc[n][1], inv)));
-      dst[(gid + 8) * ROW64 + o] =
-          clip_sample(rintf(__fmul_rn(acc[n][2], inv)));
-      dst[(gid + 8) * ROW64 + o + 1] =
-          clip_sample(rintf(__fmul_rn(acc[n][3], inv)));
+      const uint2 bb = basis[(n * 8 + kt) * 32 + lane];
+      const uint32_t b[2] = {bb.x, bb.y};
+#pragma unroll
+      for (int j = 0; j < M64_PAIR; ++j) mma(acc[j][n], a[j], b, acc[j][n]);
     }
-    __syncthreads();
-    store_tile(tile, ROW64, nb, out + b0 * 64);
+  }
+  const int gid = lane >> 2, tid = lane & 3, odd = tid & 1;
+  // Lane's 8 bytes of n-steps 2p, 2p + 1: even lanes n-step 2p, odd lanes
+  // 2p + 1, at byte 32p + 16 odd + 8 (tid >> 1) of the block.
+  const int off = 16 * odd + 8 * (tid >> 1);
+#pragma unroll
+  for (int j = 0; j < M64_PAIR; ++j) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {   // rows gid, gid + 8
+      const int blk = j * M64_TILE + gid + 8 * q;
+      uint8_t* row = reinterpret_cast<uint8_t*>(dst + blk * 64) + off;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t w0 =
+            pack_samples(__fmul_rn(acc[j][2 * p][2 * q], inv),
+                         __fmul_rn(acc[j][2 * p][2 * q + 1], inv));
+        const uint32_t w1 =
+            pack_samples(__fmul_rn(acc[j][2 * p + 1][2 * q], inv),
+                         __fmul_rn(acc[j][2 * p + 1][2 * q + 1], inv));
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? w0 : w1, 1);
+        if (blk < nb) {
+          *reinterpret_cast<uint2*>(row + 32 * p) =
+              odd ? make_uint2(got, w1) : make_uint2(w0, got);
+        }
+      }
+    }
   }
 }
 
-unsigned grid_for(long long num_blocks) {
-  return static_cast<unsigned>((num_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS);
+// Each warp's blocks [b0, b0 + M64_WARP_BLOCKS), cut at num_blocks: its
+// lanes copy every unit's valid blocks with 16-byte cp.async, a lane a
+// chunk, one commit group a unit, before the CUDA block stages the basis
+// (every entry rounded to TF32 by cvt.rna once), so the copies are in
+// flight meanwhile; one __syncthreads publishes the basis, and from then on
+// a warp waits only for its own units' groups.  Warps share nothing else,
+// and leave when done.
+__global__ void __launch_bounds__(M64_THREADS, M64_MIN_BLOCKS)
+mxu64_kernel(const int16_t* __restrict__ deq, const float* __restrict__ mat,
+             int16_t* __restrict__ out, long long num_blocks, float inv) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long b0 = (static_cast<long long>(blockIdx.x) * M64_WARPS +
+                        warp) * M64_WARP_BLOCKS;
+  const long long left = num_blocks - b0;
+  uint8_t* tiles = smem + M64_BASIS + warp * M64_WARP_BLOCKS * M64_ROW;
+#pragma unroll
+  for (int u = 0; u < M64_UNITS; ++u) {
+#pragma unroll
+    for (int k = 0; k < M64_UNIT * 8 / 32; ++k) {
+      const int c = (u * M64_UNIT * 8) + k * 32 + lane, blk = c / 8;
+      if (blk < left) {
+        __pipeline_memcpy_async(tiles + blk * M64_ROW + (c % 8) * 16,
+                                deq + (b0 + blk) * 64 + (c % 8) * 8, 16);
+      }
+    }
+    __pipeline_commit();
+  }
+  // The basis in fragment order: pair p is row n and k-step kt of mat, 32
+  // contiguous bytes holding b0 (then b1) of lanes (n % 8, 0..3) of n-step
+  // n / 8, which become those lanes' 4 entries, 32 contiguous bytes.  Every
+  // load is issued before the first conversion.
+  constexpr int kPairs = 64 * 8 / M64_THREADS;   // (n, kt) pairs a thread
+  static_assert(64 * 8 % M64_THREADS == 0, "whole pairs a thread");
+  float4 row[kPairs][2];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int p = i * M64_THREADS + threadIdx.x, n = p % 64, kt = p / 64;
+    const float4* src = reinterpret_cast<const float4*>(mat + n * 64 + kt * 8);
+    row[i][0] = __ldg(src);
+    row[i][1] = __ldg(src + 1);
+  }
+  uint2* basis = reinterpret_cast<uint2*>(smem);
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int p = i * M64_THREADS + threadIdx.x, n = p % 64, kt = p / 64;
+    const float4 lo = row[i][0], hi = row[i][1];
+    uint4* dst = reinterpret_cast<uint4*>(basis + ((n / 8) * 8 + kt) * 32 +
+                                          (n % 8) * 4);
+    dst[0] = make_uint4(tf32(lo.x), tf32(hi.x), tf32(lo.y), tf32(hi.y));
+    dst[1] = make_uint4(tf32(lo.z), tf32(hi.z), tf32(lo.w), tf32(hi.w));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < M64_UNITS; ++u) {
+    const long long rest = left - u * M64_UNIT;
+    if (rest <= 0) break;
+    __pipeline_wait_prior(M64_UNITS - 1 - u);   // unit u's group has landed
+    __syncwarp();                               // and every lane's is seen
+    mxu64_unit(tiles + u * M64_UNIT * M64_ROW, basis,
+               out + (b0 + u * M64_UNIT) * 64,
+               rest < M64_UNIT ? static_cast<int>(rest) : M64_UNIT, lane,
+               inv);
+  }
+}
+
+// The grid of a launch: a warp for every M64_WARP_BLOCKS blocks.
+unsigned mxu64_grid(long long num_blocks) {
+  constexpr long long kPerBlock =
+      static_cast<long long>(M64_WARPS) * M64_WARP_BLOCKS;
+  return static_cast<unsigned>((num_blocks + kPerBlock - 1) / kPerBlock);
+}
+
+// mxu64_kernel's dynamic shared memory (above the 48 KB static limit) and
+// the largest carveout, once.
+cudaError_t mxu64_ready() {
+  static const cudaError_t ready =
+      prepare(reinterpret_cast<const void*>(mxu64_kernel), M64_SMEM);
+  return ready;
 }
 
 // The CUDA blocks of mxu2pass_kernel<PIECES> an SM holds and their static
@@ -647,14 +789,39 @@ extern "C" int pjt_cuda_mxu2pass_occupancy(int pieces, long long num_blocks,
   return mxu2pass_resident(pieces, blocks_per_sm, smem_bytes);
 }
 
-// inv = 2^-(2 CONST_BITS).
+// inv = 2^-(2 CONST_BITS).  mat is the [64, 64] basis as float32 (its
+// structure, kron(A, A), is not assumed).
 extern "C" int pjt_cuda_mxu64(const void* deq, const void* mat, void* out,
                               long long num_blocks, float inv, void* stream) {
   if (num_blocks <= 0) return cudaErrorInvalidValue;
-  const unsigned tiles = grid_for(num_blocks);
-  mxu64_kernel<<<tiles < MXU64_MAX_GRID ? tiles : MXU64_MAX_GRID, THREADS, 0,
+  if (reinterpret_cast<uintptr_t>(deq) % 16 ||
+      reinterpret_cast<uintptr_t>(mat) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+  const cudaError_t e = mxu64_ready();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mxu64_kernel<<<mxu64_grid(num_blocks), M64_THREADS, M64_SMEM,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(deq), static_cast<const float*>(mat),
       static_cast<int16_t*>(out), num_blocks, inv);
   return static_cast<int>(cudaGetLastError());
+}
+
+// mxu64_kernel: the CUDA blocks of M64_THREADS an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with its dynamic shared
+// memory), that shared memory and the grid of a launch of num_blocks
+// blocks.
+extern "C" int pjt_cuda_mxu64_occupancy(long long num_blocks,
+                                        int* blocks_per_sm, int* smem_bytes,
+                                        int* grid) {
+  *grid = static_cast<int>(mxu64_grid(num_blocks));
+  *smem_bytes = M64_SMEM;
+  cudaError_t e = mxu64_ready();
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, reinterpret_cast<const void*>(mxu64_kernel),
+        M64_THREADS, M64_SMEM);
+  }
+  return static_cast<int>(e);
 }

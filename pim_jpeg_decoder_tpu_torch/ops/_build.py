@@ -144,8 +144,11 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_decode_occupancy, [i32] * 7 + [ptr, ptr]),
                     (lib.pjt_cuda_stacked_occupancy, [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_truerez_occupancy, [i32] * 4 + [ptr, ptr]),
+                    (lib.pjt_cuda_memfloor_occupancy, [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_mxu2pass_occupancy,
                      [i32, ctypes.c_int64, ptr, ptr, ptr]),
+                    (lib.pjt_cuda_mxu64_occupancy,
+                     [ctypes.c_int64, ptr, ptr, ptr]),
                     (lib.pjt_cuda_raster_occupancy, [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_dequant_occupancy, [i32] * 2 + [ptr]),
                     (lib.pjt_cuda_idct_occupancy, [ptr, ptr]),

@@ -1,5 +1,5 @@
-"""Experiment kernels of the fused RGB decode: the layout-matched memory
-floor and two restructurings of ``rgb_kernel``.
+"""Experiment kernels of the fused RGB decode: the memory floor of the
+tiled decode kernels' pattern and two restructurings of ``rgb_kernel``.
 
 PyTorch counterpart of the kernels in the repository's
 ``tools/kernel_opt.py`` (``_kernel_memfloor``, ``_kernel_chroma_truerez``,
@@ -13,10 +13,11 @@ of ``decode_kernel.qpool_to_device``) of a colour mode and returns uint8
 - :func:`memfloor`: no decode.  Each luma slot's output byte is
   ``u8(c[s] + c[gy] + c[gy+1])`` (int32 sum truncated to its low byte),
   written to all three planes: every coefficient byte read once, every
-  output byte written once, with the loads and byte stores of
-  ``rgb_kernel``'s first form (a thread per 8x8 block).  It is
-  the denominator of ``rgb_kernel``'s bandwidth share, and measures that
-  access pattern, not the tiled ``rgb_kernel``'s.
+  output byte written once, in the pattern of the tiled decode kernels
+  (a 32-MCU tile copied into shared memory, 16-byte row stores that fill
+  whole sectors).  It is the denominator of ``rgb_kernel``'s bandwidth
+  share: a decode kernel moves these bytes and does more, so a share over
+  100% is a finding about the floor, not an expected reading.
 - :func:`rgb_truerez`: ``rgb_kernel``'s output, with the three BT.601
   chroma terms computed once per chroma sample and replicated to the luma
   pixels by index.
@@ -142,7 +143,7 @@ def _run(name: str, entry: str, plain, coeffs: torch.Tensor,
 
 def memfloor(coeffs: torch.Tensor, qidx: torch.Tensor, qpool: torch.Tensor,
              mode: S.ModeSpec) -> torch.Tensor:
-    """Layout-matched memory floor of ``rgb_kernel``: uint8
+    """Memory floor of the tiled decode kernels' pattern: uint8
     ``[3, luma_slots, 64, M]``, each plane ``u8(c[s] + c[gy] + c[gy+1])``
     for luma slot ``s``."""
     return _run("memfloor", "pjt_cuda_memfloor", memfloor_reference, coeffs,
@@ -186,6 +187,13 @@ def stacked_occupancy(wire_bytes: int, mode: S.ModeSpec,
     0, the 16-byte-store form), from the CUDA occupancy calculator on the
     current card."""
     return _tile_occupancy("stacked", wire_bytes, mode, vec16)
+
+
+def memfloor_occupancy(wire_bytes: int, mode: S.ModeSpec,
+                       vec16: bool = True) -> Tuple[int, int]:
+    """``(blocks per SM, static shared memory bytes)`` of the floor kernel
+    a launch of ``mode`` on this wire takes, as for the stacked kernel."""
+    return _tile_occupancy("memfloor", wire_bytes, mode, vec16)
 
 
 def truerez_occupancy(wire_bytes: int, mode: S.ModeSpec,

@@ -54,6 +54,13 @@ from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
 MXU2PASS_TILE = 8
 TILES_PER_WARP = {1: 1, 2: 2}
 WARPS_PER_BLOCK = 4
+# mxu64_kernel's geometry (csrc/mxu_idct.cu: M64_TILE, M64_PAIR, M64_UNITS,
+# M64_WARPS): a warp takes MXU64_UNITS units of MXU64_PAIR MMA tiles of
+# MXU64_TILE 8x8 blocks, MXU64_WARPS warps a CUDA block.
+MXU64_TILE = 16
+MXU64_PAIR = 2
+MXU64_UNITS = 2
+MXU64_WARPS = 4
 
 INV1 = 2.0 ** -(S.CONST_BITS - S.PASS1_BITS)
 INV2 = 2.0 ** -(S.CONST_BITS + S.PASS1_BITS)
@@ -179,6 +186,25 @@ def mxu2pass_occupancy(pieces: int, num_blocks: int) -> Tuple[int, int, int]:
     vals = [ctypes.c_int() for _ in range(3)]
     rc = load().pjt_cuda_mxu2pass_occupancy(
         pieces, num_blocks, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return tuple(v.value for v in vals)
+
+
+def mxu64_occupancy(num_blocks: int) -> Tuple[int, int, int]:
+    """``(blocks per SM, dynamic shared memory bytes, grid)`` of the mxu64
+    kernel: the CUDA occupancy calculator's blocks on the current card and
+    the CUDA blocks a launch of ``num_blocks`` 8x8 blocks takes."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    if (isinstance(num_blocks, bool) or not isinstance(num_blocks, int)
+            or num_blocks < 1):
+        raise ValueError(f"num_blocks must be a positive int, got "
+                         f"{num_blocks!r}")
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = load().pjt_cuda_mxu64_occupancy(
+        num_blocks, *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc}")
     return tuple(v.value for v in vals)

@@ -1,7 +1,8 @@
 """A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``),
 the raster epilogue, the dequantize, IDCT and colour stage kernels, the
-scaled decode kernel, the stacked and truerez experiment kernels and the
-tensor-core IDCT kernels between two checkouts, in one call on one card.
+scaled decode kernel, the stacked and truerez experiment kernels, the
+tensor-core IDCT kernels and the memory floor between two checkouts, in one
+call on one card.
 
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent DIR
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --root DIR
@@ -34,8 +35,10 @@ scale 2 at 16,384 int8); the stacked and truerez kernels
 (``STACKED_GEOMETRIES``, ``TRUEREZ_GEOMETRIES``: 4:2:0 at M=16,384 on both
 wires and 196,608 int16), whose lines end with ``rgb_kernel``'s time on the
 same geometry from the same runs; the tensor-core IDCT (``MXU_GEOMETRIES``:
-``mxu2pass`` with pieces 1 and 2 and ``mxu64`` at 4:2:0, M=16,384, and both
-``mxu2pass`` forms at 196,608, int16).
+``mxu2pass`` with pieces 1 and 2 and ``mxu64`` at 4:2:0, M=16,384, both
+``mxu2pass`` forms at 196,608 and ``mxu64`` at 196,608, int16); the memory
+floor (``MEMFLOOR_GEOMETRIES``: 4:2:0 at M=16,384 on both wires and 196,608
+int16), whose lines also end with ``rgb_kernel``'s time.
 Inputs: Laplace(0, 6) coefficients, Q=16 quantizer rows (one of 16-bit
 values), uniform bytes for the epilogue, the IDCT tool's draw (int16 in
 [-2048, 2048), ``tools/mxu_idct_ab.make_inputs``), drawn from a fixed seed,
@@ -99,7 +102,10 @@ TRUEREZ_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
 # (variant of tools/mxu_idct_ab, M) of the tensor-core IDCT at 4:2:0, int16
 MXU_GEOMETRIES: Tuple[Tuple[str, int], ...] = (
     ("mxu2pass", 16384), ("mxu2pass4", 16384), ("mxu64", 16384),
-    ("mxu2pass", 196608), ("mxu2pass4", 196608))
+    ("mxu2pass", 196608), ("mxu2pass4", 196608), ("mxu64", 196608))
+# (M, wire bytes) of the memory floor at 4:2:0
+MEMFLOOR_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
+    (16384, 1), (16384, 2), (196608, 2))
 ORDER = ("parent", "change", "change", "parent")
 
 
@@ -144,6 +150,12 @@ def mxu_name(variant: str, m: int) -> str:
     return geometry_name(variant, "4:2:0", m, 2)
 
 
+def memfloor_name(m: int, wire: int) -> str:
+    """The memory floor at 4:2:0, beside ``rgb_kernel`` as the truerez
+    kernel is."""
+    return geometry_name("memfloor", "4:2:0", m, wire)
+
+
 def geometry_names() -> List[str]:
     """Every geometry ``side`` times, in its order."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
@@ -156,7 +168,8 @@ def geometry_names() -> List[str]:
             + [scaled_name(*g) for g in SCALED_GEOMETRIES]
             + [stacked_name(m, w) for m, w in STACKED_GEOMETRIES]
             + [truerez_name(m, w) for m, w in TRUEREZ_GEOMETRIES]
-            + [mxu_name(v, m) for v, m in MXU_GEOMETRIES])
+            + [mxu_name(v, m) for v, m in MXU_GEOMETRIES]
+            + [memfloor_name(m, w) for m, w in MEMFLOOR_GEOMETRIES])
 
 
 def stage_geometries() -> List[Tuple[str, int]]:
@@ -250,7 +263,7 @@ def side() -> dict:
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
     from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import (
-        rgb_stacked, rgb_truerez)
+        memfloor, rgb_stacked, rgb_truerez)
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_stage, dequantize_stage, idct_stage)
     from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
@@ -328,6 +341,11 @@ def side() -> dict:
         measure(mxu_name(variant, m), fns[variant][0], bufs)
         del bufs
         torch.cuda.empty_cache()
+    for m, wire in MEMFLOOR_GEOMETRIES:
+        bufs = _inputs(torch, mode, m, wire, dev)
+        measure(memfloor_name(m, wire), lambda b: memfloor(*b, mode), bufs)
+        del bufs
+        torch.cuda.empty_cache()
     return {"card": torch.cuda.get_device_name(0), "results": results}
 
 
@@ -356,12 +374,13 @@ def verdict(runs: Sequence[dict]) -> Dict[str, dict]:
 
 
 def report_lines(table: Dict[str, dict], card: str) -> List[str]:
-    """A line per geometry of ``verdict``'s table; a stacked or truerez
-    geometry's line ends with ``rgb_kernel``'s mean times on the same
-    geometry."""
+    """A line per geometry of ``verdict``'s table; a stacked, truerez or
+    memory-floor geometry's line ends with ``rgb_kernel``'s mean times on
+    the same geometry."""
     beside = {name(m, w): geometry_name("rgb", "4:2:0", m, w)
               for name, geometries in ((stacked_name, STACKED_GEOMETRIES),
-                                       (truerez_name, TRUEREZ_GEOMETRIES))
+                                       (truerez_name, TRUEREZ_GEOMETRIES),
+                                       (memfloor_name, MEMFLOOR_GEOMETRIES))
               for m, w in geometries}
     lines = []
     for name, row in table.items():

@@ -13,9 +13,11 @@ Prints one line per variant, then one JSON line
 
 Variants (all by default), from ``ops/kernel_variants.py``:
 
-- ``memfloor``, ``memfloor_i8``: the memory floor of ``rgb_kernel``'s
-  first, per-thread form's access pattern, int16 / int8 wire; ``bit_exact``
-  is equality with its plain version.
+- ``memfloor``, ``memfloor_i8``: the memory floor of the tiled decode
+  kernels' pattern (a 32-MCU tile copied into shared memory, 16-byte row
+  stores), int16 / int8 wire; ``bit_exact`` is equality with its plain
+  version.  ``rgb_kernel`` moves the same bytes and does the decode too, so
+  a time under the floor's is a finding.
 - ``prod``, ``prod_i8``: ``decode_mcus(..., raw=True)``, i.e.
   ``rgb_kernel``, the reference of the decode variants.  The int8 wire
   carries the coefficients clipped to [-127, 127], and its reference is
@@ -29,10 +31,9 @@ prints it.
 Not run: ``stacked_fusedmm`` differs from ``stacked`` only in gathering
 the quantizers with one one-hot matmul on the TPU's matrix unit, which on
 a GPU is the indexed load every kernel already does; ``prod_lt256`` and
-``stacked_lt256`` change the TPU lane tile, a TPU block width, while the
-memory floor and truerez take ``TILE`` = 64 MCUs per block
-(``csrc/decode_common.cuh``), ``rgb_kernel`` and the stacked kernel
-``TILE_MCUS`` = 32 (``csrc/decode_tile.cuh``).
+``stacked_lt256`` change the TPU lane tile, a TPU block width, while every
+kernel here takes ``TILE_MCUS`` = 32 MCUs per block
+(``csrc/decode_tile.cuh``).
 
 Needs a CUDA card: a CPU run is not a device time.
 """

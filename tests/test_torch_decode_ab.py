@@ -33,7 +33,8 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == 16 + 3 + 4 + 4 + 8 + 3 + 3 + 5
+    assert len(names) == len(set(names)) == (16 + 3 + 4 + 4 + 8 + 3 + 3 + 6
+                                             + 3)
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
@@ -95,7 +96,9 @@ def _named_runs(us_by_name, digests=None):
     "stacked 4:2:0 M=16384 int8", "stacked 4:2:0 M=196608 int16",
     "truerez 4:2:0 M=16384 int8", "truerez 4:2:0 M=196608 int16",
     "mxu2pass 4:2:0 M=16384 int16", "mxu2pass4 4:2:0 M=16384 int16",
-    "mxu64 4:2:0 M=16384 int16", "mxu2pass4 4:2:0 M=196608 int16"])
+    "mxu64 4:2:0 M=16384 int16", "mxu2pass4 4:2:0 M=196608 int16",
+    "mxu64 4:2:0 M=196608 int16", "memfloor 4:2:0 M=16384 int8",
+    "memfloor 4:2:0 M=196608 int16"])
 def test_verdict_on_the_new_geometries(name):
     """Each geometry gets its own verdict from its own band: the named one
     faster beyond it, a decode kernel beside it within its band."""
@@ -171,8 +174,8 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     196,608, scale 4 and 8 at 196,608 int8, gray and 4:4:4 scale 2 at
     16,384 int8; the stacked kernel at 4:2:0, M=16,384 on both wires and
     196,608 int16, each with rgb_kernel's geometry of the same M and wire
-    in the table.  They were last until the truerez and tensor-core IDCT
-    geometries were appended after them."""
+    in the table.  They were last until the truerez, tensor-core IDCT and
+    memory-floor geometries were appended after them."""
     names = A.geometry_names()
     scaled = [A.scaled_name(*g) for g in A.SCALED_GEOMETRIES]
     stacked = [A.stacked_name(m, w) for m, w in A.STACKED_GEOMETRIES]
@@ -180,7 +183,8 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     assert names[start:start + 11] == scaled + stacked
     assert names[start + 11:] == (
         [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
-        + [A.mxu_name(v, m) for v, m in A.MXU_GEOMETRIES])
+        + [A.mxu_name(v, m) for v, m in A.MXU_GEOMETRIES]
+        + [A.memfloor_name(m, w) for m, w in A.MEMFLOOR_GEOMETRIES])
     want = {("4:2:0", 2, 16384, 8), ("4:2:0", 2, 16384, 16),
             ("4:2:0", 2, 196608, 8), ("4:2:0", 2, 196608, 16),
             ("4:2:0", 4, 196608, 8), ("4:2:0", 8, 196608, 8),
@@ -215,14 +219,14 @@ def test_truerez_and_mxu_geometries_are_named_and_last():
     """The truerez kernel at 4:2:0, M=16,384 on both wires and 196,608
     int16, each beside rgb_kernel's geometry of the same M and wire; then
     the tensor-core IDCT: mxu2pass with pieces 1 and 2 and mxu64 at
-    M=16,384, both mxu2pass forms at 196,608, each a variant the IDCT
-    tool runs."""
+    M=16,384, both mxu2pass forms and mxu64 at 196,608, each a variant the
+    IDCT tool runs.  Only the memory-floor geometries follow them."""
     from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
 
     names = A.geometry_names()
     truerez = [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
     mxu = [A.mxu_name(v, m) for v, m in A.MXU_GEOMETRIES]
-    assert names[-8:] == truerez + mxu
+    assert names[-12:-3] == truerez + mxu
     assert truerez == ["truerez 4:2:0 M=16384 int8",
                        "truerez 4:2:0 M=16384 int16",
                        "truerez 4:2:0 M=196608 int16"]
@@ -230,7 +234,8 @@ def test_truerez_and_mxu_geometries_are_named_and_last():
                    "mxu2pass4 4:2:0 M=16384 int16",
                    "mxu64 4:2:0 M=16384 int16",
                    "mxu2pass 4:2:0 M=196608 int16",
-                   "mxu2pass4 4:2:0 M=196608 int16"]
+                   "mxu2pass4 4:2:0 M=196608 int16",
+                   "mxu64 4:2:0 M=196608 int16"]
     for m, w in A.TRUEREZ_GEOMETRIES:
         assert A.geometry_name("rgb", "4:2:0", m, w) in names
     assert {v for v, _ in A.MXU_GEOMETRIES} <= set(mxu_idct_ab.VARIANTS)
@@ -249,4 +254,32 @@ def test_truerez_lines_carry_rgb_kernel_times():
     assert "faster" in truerez
     assert ("rgb_kernel in the same runs: parent 160.20, change 160.40 us"
             in truerez)
+    assert sum("rgb_kernel in the same runs" in ln for ln in lines) == 1
+
+
+def test_memfloor_geometries_are_named_and_last():
+    """The memory floor at 4:2:0, M=16,384 on both wires and 196,608 int16,
+    appended after every earlier geometry (whose names stay as they were),
+    each beside rgb_kernel's geometry of the same M and wire."""
+    names = A.geometry_names()
+    floor = [A.memfloor_name(m, w) for m, w in A.MEMFLOOR_GEOMETRIES]
+    assert names[-3:] == floor == ["memfloor 4:2:0 M=16384 int8",
+                                   "memfloor 4:2:0 M=16384 int16",
+                                   "memfloor 4:2:0 M=196608 int16"]
+    for m, w in A.MEMFLOOR_GEOMETRIES:
+        assert A.geometry_name("rgb", "4:2:0", m, w) in names
+
+
+def test_memfloor_lines_carry_rgb_kernel_times():
+    """``report_lines``: a memory-floor geometry's line ends with
+    rgb_kernel's mean times from the same runs, as a truerez one's does."""
+    table = A.verdict(_named_runs({
+        "memfloor 4:2:0 M=196608 int16": ((145.0, 145.4), (122.0, 122.6)),
+        "rgb 4:2:0 M=196608 int16": ((160.0, 160.4), (160.2, 160.6)),
+        "mxu64 4:2:0 M=196608 int16": ((180.0, 180.2), (120.0, 120.4))}))
+    lines = A.report_lines(table, "card")
+    floor = [ln for ln in lines if ln.startswith("memfloor")][0]
+    assert "faster" in floor
+    assert ("rgb_kernel in the same runs: parent 160.20, change 160.40 us"
+            in floor)
     assert sum("rgb_kernel in the same runs" in ln for ln in lines) == 1

@@ -121,6 +121,32 @@ def test_memfloor_is_the_wrapped_sum(mode_key, wire):
         np.testing.assert_array_equal(plane, want)
 
 
+@pytest.mark.parametrize("m", [1, 15, 17, 31, 33, 65, "slice"])
+@pytest.mark.parametrize("wire", [np.int16, np.int8], ids=["i16", "i8"])
+@COLOUR
+def test_memfloor_at_ragged_m_and_on_a_slice(mode_key, wire, m):
+    """The plain floor at M values around the kernel's 32-MCU tile and its
+    16-byte stores, and on a ``coeffs[5:]`` slice (the kernel's inputs on
+    the card in chip_smoke.py's tile cases), against the NumPy wrapped
+    sum of every plane."""
+    mode = S.mode_for(mode_key)
+    n = 1032 if m == "slice" else m
+    coeffs, qidx, qpool = extreme_inputs(mode, max(n, 30), seed=n, wire=wire)
+    coeffs, qidx = coeffs[:n], qidx[:n]
+    args = port_inputs(coeffs, qidx, qpool)
+    if m == "slice":
+        coeffs, qidx = coeffs[5:], qidx[5:]
+        args = (args[0][5:], args[1][5:], args[2])
+    got = V.memfloor(*args, mode).numpy()
+    c = coeffs.astype(np.int64)
+    gy = mode.luma_slots
+    want = ((c[:, :gy] + c[:, gy:gy + 1] + c[:, gy + 1:gy + 2]) % 256).astype(
+        np.uint8).transpose(1, 2, 0)
+    assert got.shape == (3, gy, 64, len(coeffs))
+    for plane in got:
+        np.testing.assert_array_equal(plane, want)
+
+
 @pytest.mark.parametrize("m", [1001, 64, 1])
 @pytest.mark.parametrize("wire", [np.int16, np.int8], ids=["i16", "i8"])
 @COLOUR

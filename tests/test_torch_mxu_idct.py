@@ -68,6 +68,21 @@ def test_plain_version_matches_the_jax_kernel(jax_tool, variant, seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_plain_mxu64_matches_the_jax_kernel_on_full_range(jax_tool, seed):
+    """The plain mxu64 equals the JAX tool's Pallas kernel at further
+    seeds, on full-range int16 with both extremes (products past 2^24,
+    rounded the same way on both sides)."""
+    kernel, mat = VARIANTS["mxu64"][0](jax_tool)
+    rng = np.random.default_rng(seed)
+    deq = rng.integers(-32768, 32768, (jax_tool.LANE_TILE, 6, 64)).astype(
+        np.int16)
+    deq[0], deq[1] = 32767, -32768
+    want = np.asarray(jax_tool._call(kernel, mat)(deq)).transpose(2, 0, 1)
+    got = X.mxu64_reference(torch.from_numpy(deq))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_variants_are_within_one_of_the_butterfly(variant):
     """The element order is the butterfly stage kernel's: every sample
@@ -192,6 +207,50 @@ def test_mxu2pass_geometry_matches_the_header():
                         ("M2_WARPS", X.WARPS_PER_BLOCK)):
         found = re.search(rf"constexpr int {name} = (\d+);", text)
         assert found and int(found.group(1)) == value
+
+
+def test_mxu64_geometry_matches_the_header():
+    """``MXU64_TILE`` / ``MXU64_PAIR`` / ``MXU64_UNITS`` / ``MXU64_WARPS``
+    (read by chip_smoke.py's edge cases and SASS accounting) are the values
+    csrc/mxu_idct.cu compiles mxu64_kernel with."""
+    import re
+
+    with open(os.path.join(REPO, "pim_jpeg_decoder_tpu_torch", "csrc",
+                           "mxu_idct.cu")) as f:
+        text = f.read()
+    for name, value in (("M64_TILE", X.MXU64_TILE),
+                        ("M64_PAIR", X.MXU64_PAIR),
+                        ("M64_UNITS", X.MXU64_UNITS),
+                        ("M64_WARPS", X.MXU64_WARPS)):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert found and int(found.group(1)) == value
+
+
+@pytest.mark.parametrize("num_blocks", [0, -5, 2.5, True, "64"])
+def test_mxu64_occupancy_rejects_bad_block_counts(num_blocks):
+    """The occupancy query takes a positive int of 8x8 blocks and raises
+    before it builds or loads anything."""
+    with pytest.raises(ValueError):
+        X.mxu64_occupancy(num_blocks)
+
+
+def test_mxu64_edge_shapes_cover_its_branches():
+    """chip_smoke.py's mxu64 edge cases: 1, 15, 16, 17, 63, 64 and 65
+    blocks, then a last CUDA block with a full warp, a ragged one and idle
+    ones, a [5:] slice and M=196,608."""
+    C = _chip_smoke()
+    blocks, shapes = C.mxu_edge_shapes("mxu64")
+    per_warp = X.MXU64_TILE * X.MXU64_PAIR * X.MXU64_UNITS
+    per_block = per_warp * X.MXU64_WARPS
+    assert blocks[:7] == (1, 15, 16, 17, 63, 64, 65)
+    ragged = blocks[7]
+    last = ragged - 3 * per_block
+    assert 3 * per_block < ragged < 4 * per_block
+    assert per_warp < last < 2 * per_warp   # warp 0 full, 1 ragged, 2-3 idle
+    assert (last - per_warp) % X.MXU64_TILE != 0
+    assert shapes[-2:] == ["slice", (196608, 6, 64)]
+    assert shapes[:-2] == [(n, 1, 64) for n in blocks]
+    assert C.mxu_edge_shapes("mxu2pass")[0] == (1, 7, 8, 9, 17, 109)
 
 
 def _chip_smoke():
