@@ -59,13 +59,19 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    scale 1 and 2, as uint8 and as bfloat16 normalised with the ImageNet
    statistics, every batch equal to the oracle rasters;
    ``decode_batch_crops`` of 224x224 random crops from 4:2:0 images of
-   three sizes, equal to slices of the oracle rasters; the experiment
-   tool ``tools.kernel_opt`` (every variant bit-exact, each of its three
-   kernels launched); the tools ``tools.mxu_idct_ab`` (the butterfly and
-   the three tensor-core variants, each within its tolerance) and
-   ``tools.vlc_bench`` (exact), their kernels launched (the IDCT tool in
-   two runs, mxu2pass4 alone in the second, so that pieces 2 has a launch
-   count of its own);
+   three sizes, equal to slices of the oracle rasters; every path that
+   takes a device list over two shards of the one card (``[3 multi]``:
+   the engine on both transports, the single-image APIs, the B=256
+   batches and the crop batch, each equal to the oracle or to one device,
+   every shard launching), with the engine's MP/s and the batch path's
+   images/s against one device, the host concatenation of two shards
+   against their D2H, and two gloo ranks of ``tools.scaling_bench``; the
+   experiment tool ``tools.kernel_opt`` (every variant bit-exact, each of
+   its three kernels launched); the tools ``tools.mxu_idct_ab`` (the
+   butterfly and the three tensor-core variants, each within its
+   tolerance) and ``tools.vlc_bench`` (exact), their kernels launched (the
+   IDCT tool in two runs, mxu2pass4 alone in the second, so that pieces 2
+   has a launch count of its own);
 4. kernel and plain-version times with CUDA events
    (``utils/devbench.seconds_per_launch``, 10 rotating inputs past the 50
    MB L2; median with min and max), each kernel's bound (the larger of its
@@ -97,6 +103,11 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    (with SASS counts for truerez and the floor at 4:2:0, for mxu2pass and
    for mxu64); the floor and mxu64 also at M=196,608 against their bounds
    (mxu64 beside its TF32 ``torch.matmul`` yardstick).
+
+``python3 chip_smoke.py --cards`` (a machine with two cards or more)
+runs only phase 1, each kernel that prepares attributes on every card
+against the first card, and ``[3 multi]`` over every card (ranks one a
+card): what a one-card machine cannot show.
 
 Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -1130,7 +1141,7 @@ def phase_slice(dev, paths, oracles, scaled_oracles) -> dict:
           f"every BMP == decode_scaled_oracle; launches rgb_scaled="
           f"{scaled_counts['rgb_scaled']} plain_on_cuda="
           f"{scaled_counts['plain_on_cuda']}", flush=True)
-    return counts
+    return counts, base
 
 
 PHASE_LABELS = ("GPU kernel device time", "Device dequantization time",
@@ -1299,6 +1310,359 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
           f"raster={crop_counts['raster']} plain_on_cuda="
           f"{crop_counts['plain_on_cuda']}", flush=True)
     return counts
+
+
+# --- phase 3, several devices ---------------------------------------------
+
+MULTI_RANKS = 2
+MULTI_RANK_TIMEOUT_S = 150
+
+
+def shard_launches(report) -> int:
+    """Kernel launches an engine report's batches made: one a shard."""
+    dispatches = sum(report.launch_stats.values())
+    return (len(report.devices) * (dispatches - report.one_device_batches)
+            + report.one_device_batches)
+
+
+def engine_mps(torch, engine, paths, runs: int = 3):
+    """MP/s of ``runs`` synchronised engine runs writing BMPs (after a
+    warm one), and the last report."""
+    engine.decode_paths(paths, write=True)
+    rates = []
+    for _ in range(runs):
+        t0 = time.monotonic()
+        report = engine.decode_paths(paths, write=True)
+        torch.cuda.synchronize()
+        rates.append(report.total_megapixels / (time.monotonic() - t0))
+    return rates, report
+
+
+def concat_costs(torch, dev, card: str) -> None:
+    """The host concatenation that a gather of the engine's shards would
+    cost, beside the D2H of those shards (pinned, one buffer each)."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.parallel.sharding import (
+        decode_mcus_sharded, to_host)
+
+    mode = S.mode_for((2, 2, 3))
+    rng = np.random.default_rng(SEED + 6)
+    for m in (16384, 65536):     # the engine's packed and big launches
+        coeffs, qidx, qpool = synthetic_batch(mode, m, np.int8, rng,
+                                              extreme=False)
+        for ycbcr in (True, False):
+            outs = decode_mcus_sharded(coeffs, qidx, qpool, mode,
+                                       [dev, dev], raw=not ycbcr,
+                                       ycbcr=ycbcr)
+            d2h, cat = [], []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                host, done = to_host(outs)
+                for event in done:
+                    if event is not None:
+                        event.synchronize()
+                d2h.append(time.perf_counter() - t0)
+                shards = [h.numpy() for h in host]
+                t0 = time.perf_counter()
+                np.concatenate(shards, axis=-1)
+                cat.append(time.perf_counter() - t0)
+            d2h_s, cat_s = statistics.median(d2h), statistics.median(cat)
+            mb = sum(o.numel() for o in outs) / 1e6
+            print(f"[3 multi] host concatenation of 2 shards, 4:2:0 M={m} "
+                  f"{'ycbcr' if ycbcr else 'rgb'} ({mb:.1f} MB): "
+                  f"{cat_s:.6f} s (median of 7; min {min(cat):.6f}) against "
+                  f"the shards' D2H {d2h_s:.6f} s (min {min(d2h):.6f}), "
+                  f"{cat_s / d2h_s:.2f}x | {card}", flush=True)
+    print("[3 multi] the engine concatenates no shards: each image is "
+          "finished from the shard buffer that holds it, and only an image "
+          "that straddles two shards is joined, by a copy of its own MCUs "
+          "(parallel/sharding.mcu_window)", flush=True)
+
+
+def visible_card(index: int) -> str:
+    """``CUDA_VISIBLE_DEVICES`` for a child that sees only this process's
+    card ``index``."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return visible.split(",")[index] if visible else str(index)
+
+
+def scaling_ranks(devices, root: str, tmp: str, card: str) -> None:
+    """Ranks of the port's tools/scaling_bench.py over gloo on localhost:
+    one a distinct card of ``devices`` (each sees only its own), or
+    ``MULTI_RANKS`` on one card; every rank exits 0, and only the
+    metadata rows cross."""
+    import socket
+
+    cards = sorted({d.index for d in devices})
+    ranks = len(cards) if len(cards) > 1 else MULTI_RANKS
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs, procs = [], []
+    for rank in range(ranks):
+        out = open(os.path.join(tmp, f"rank{rank}.out"), "w+")
+        err = open(os.path.join(tmp, f"rank{rank}.err"), "w+")
+        logs.append((out, err))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible_card(
+            cards[rank % len(cards)]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "pim_jpeg_decoder_tpu_torch.tools."
+             "scaling_bench", "--num-processes", str(ranks),
+             "--process-id", str(rank), "--coordinator",
+             f"localhost:{port}", "--images", "16", "--device", "cuda:0"],
+            stdout=out, stderr=err, cwd=root, env=env, text=True))
+    t0 = time.monotonic()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MULTI_RANK_TIMEOUT_S
+                               - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for out, err in logs:
+        out.seek(0)
+        err.seek(0)
+        texts.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    wall = time.monotonic() - t0
+    for rank, (p, (out, err)) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"scaling_bench rank {rank} exited {p.returncode}:\n{out}\n"
+                 f"{err[-3000:]}")
+    lines = [ln for ln in texts[0][0].splitlines() if ln.startswith("{")]
+    if not lines:
+        fail(f"scaling_bench rank 0 printed no JSON:\n{texts[0][0]}")
+    report = json.loads(lines[-1])
+    if (report.get("hosts") != ranks
+            or not 0 < report.get("dcn_bytes", 0) <= 64 * ranks
+            or report.get("mp_balance", 0) < 0.99):
+        fail(f"scaling_bench over gloo: {report}")
+    print(f"[3 multi] tools.scaling_bench, {ranks} ranks on cuda:"
+          f"{', cuda:'.join(str(cards[r % len(cards)]) for r in range(ranks))}"
+          f" over gloo (localhost), 16 images: every rank exits 0 in "
+          f"{wall:.1f} s; {json.dumps(report)} | {card}", flush=True)
+
+
+def per_card_kernels(torch, devices, card: str) -> None:
+    """Each kernel that prepares function attributes (dynamic shared memory
+    above 48 KB, the carveout: ``csrc/decode_tile.cuh:PerDevice``) launched
+    on every card at 4:2:0 on the int16 wire, equal to the same launch on
+    the first card: a once-per-process preparation fails on a second card
+    (rgb_kernel needs 56,960 B there)."""
+    from pim_jpeg_decoder_tpu_torch.ops import kernel_variants, mxu_idct
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops import stage_kernels as ST
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, qpool_to_device)
+
+    mode = S.mode_for((2, 2, 3))
+    c, qi, qp = synthetic_batch(mode, 4099, np.int16, np.random.default_rng(
+        SEED + 7), extreme=True)
+    deq = np.clip(c.astype(np.int32) * 9, -2048, 2047).astype(np.int16)
+    cases = {
+        "rgb": lambda x, q, p, d: decode_mcus(x, q, p, mode, raw=True),
+        "ycbcr": lambda x, q, p, d: decode_mcus(x, q, p, mode, ycbcr=True),
+        "rgb_scaled": lambda x, q, p, d: decode_mcus(x, q, p, mode, raw=True,
+                                                     scale=2),
+        "truerez": lambda x, q, p, d: kernel_variants.rgb_truerez(x, q, p,
+                                                                  mode),
+        "stacked": lambda x, q, p, d: kernel_variants.rgb_stacked(x, q, p,
+                                                                  mode),
+        "idct+color": lambda x, q, p, d: ST.decode_mcus_staged(x, q, p, mode),
+        "mxu64": lambda x, q, p, d: mxu_idct.mxu64(d),
+    }
+    want = {}
+    for dev in devices:
+        inputs = (coeffs_to_device(c, dev), torch.from_numpy(qi).to(dev),
+                  qpool_to_device(qp, dev), torch.from_numpy(deq).to(dev))
+        for name, fn in cases.items():
+            with torch.cuda.device(dev):
+                got = fn(*inputs).cpu()
+            if name not in want:
+                want[name] = got
+            elif not torch.equal(got, want[name]):
+                fail(f"{name} on {dev} differs from {devices[0]}")
+    print(f"[3 cards] {', '.join(cases)} at 4:2:0 int16, M=4099 with extreme "
+          f"blocks, on each of {', '.join(str(d) for d in devices)}: == the "
+          f"first card's | {card}", flush=True)
+
+
+def phase_multi(torch, dev, devices, card: str, root: str, tmp: str, paths,
+                oracles, base: dict, blobs, refs, crop_set) -> None:
+    """Every path that takes a device list, over ``devices`` (two shards
+    of the one card, ``[dev, dev]``, or with ``--cards`` every card): the
+    split, the per-shard streams and the gather.  Each output equals the
+    oracle or the one-device (``dev``) output, and every shard launched.
+    Then ranks of the scaling harness over gloo."""
+    from pim_jpeg_decoder_tpu_torch.io.bmp import read_bmp
+    from pim_jpeg_decoder_tpu_torch.models import pipeline as P
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
+        decode_batch_crops, iter_decode_batches)
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        apply_norm, launch_counts, reset_launch_counts)
+    from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
+    from pim_jpeg_decoder_tpu_torch.utils.config import EngineConfig
+
+    t_phase = time.monotonic()
+    two, n = list(devices), len(devices)
+    names = ", ".join(str(d) for d in two)
+    for transport in ("auto", "rgb"):
+        engine = DecodeEngine(config=EngineConfig.from_env(
+            transport=transport), device=two)
+        reset_launch_counts()
+        report = engine.decode_paths(paths, write=True)
+        counts = launch_counts()
+        if report.ok_count != len(paths):
+            fail(f"two-shard engine ({transport}) failed files: "
+                 f"{[(r.name, r.error) for r in report.results if not r.ok]}")
+        if bmp_digests(paths) != base:
+            fail(f"two-shard engine ({transport}) BMPs differ from the "
+                 f"one-device run's")
+        for p in paths:
+            if not np.array_equal(read_bmp(P.output_path(p)), oracles[p]):
+                fail(f"two-shard BMP of {os.path.basename(p)} != oracle")
+        launched = counts["rgb"] + counts["ycbcr"]
+        if (launched != shard_launches(report) or counts["plain_on_cuda"]
+                or report.one_device_batches):
+            fail(f"two-shard engine ({transport}): launches {counts}, "
+                 f"{shard_launches(report)} expected "
+                 f"({report.one_device_batches} one-device batches)")
+        print(f"[3 multi] DecodeEngine(device=[{names}]) --transport "
+              f"{transport} on {len(paths)} JPEGs: every BMP == oracle raster "
+              f"and == the one-device digests; launches rgb={counts['rgb']} "
+              f"ycbcr={counts['ycbcr']} plain_on_cuda="
+              f"{counts['plain_on_cuda']} ({n} a batch, "
+              f"{sum(report.launch_stats.values())} batches, 0 on one device)",
+              flush=True)
+
+    # The first file of each corpus entry: every mode, DRI, 2048x1536.
+    firsts = np.cumsum([0] + [count for count, _, _, _ in CORPUS])[:-1]
+    singles = [paths[i] for i in firsts]
+    reset_launch_counts()
+    for p in singles:
+        with open(p, "rb") as f:
+            data = f.read()
+        h = oracles[p].shape[0]
+        w = oracles[p].shape[1]
+        pairs = (
+            (P.TorchJpegDecoder(two).decode(data).rgb, oracles[p]),
+            (P.decode_scaled(data, 2, two), P.decode_scaled(data, 2, dev)),
+            (P.decode_region(data, h // 3, w // 5, h // 2, w // 2, two),
+             oracles[p][h // 3:h // 3 + h // 2, w // 5:w // 5 + w // 2]))
+        for what, (got, want) in zip(("decode", "decode_scaled 2",
+                                      "decode_region"), pairs):
+            if not np.array_equal(got, want):
+                fail(f"two-shard {what} of {os.path.basename(p)} differs")
+    counts = launch_counts()
+    # A shard a device for the decode and the region; for decode_scaled n,
+    # and one for the one-device output it is held against.
+    if (counts["rgb"] + counts["ycbcr"] != 2 * n * len(singles)
+            or counts["rgb_scaled"] != (n + 1) * len(singles)
+            or counts["plain_on_cuda"]):
+        fail(f"two-shard single-image APIs: launches {counts}")
+    print(f"[3 multi] TorchJpegDecoder, decode_scaled(2), decode_region on "
+          f"[{names}] for {len(singles)} JPEGs (every mode, 2048x1536): "
+          f"== oracle / one device; launches rgb={counts['rgb']} ycbcr="
+          f"{counts['ycbcr']} rgb_scaled={counts['rgb_scaled']} "
+          f"plain_on_cuda={counts['plain_on_cuda']}", flush=True)
+
+    rng = np.random.default_rng(SEED + 3)
+    order = imagenet_batches(rng, blobs)
+    expected = {s: torch.from_numpy(np.stack(refs[s])).to(dev)
+                for s in (1, 2)}
+    reset_launch_counts()
+    for scale, dtype_name in ((1, None), (2, "bfloat16")):
+        kw, norm = batch_options(torch, dtype_name)
+        stream = iter_decode_batches(([blobs[i] for i in idx]
+                                      for idx in order), scale=scale,
+                                     device=two, **kw)
+        for idx, (out, _) in zip(order, stream):
+            want = apply_norm(expected[scale][torch.from_numpy(idx).to(dev)],
+                              norm)
+            if out.device != dev or not torch.equal(out, want):
+                fail(f"two-shard batch (scale {scale}, "
+                     f"{dtype_name or 'uint8'}) != oracle")
+    counts = launch_counts()
+    want_counts = {"rgb": n * len(order), "rgb_scaled": n * len(order),
+                   "raster": 2 * n * len(order), "plain_on_cuda": 0}
+    if any(counts[k] != v for k, v in want_counts.items()):
+        fail(f"two-shard batches: launches {counts}, expected {want_counts}")
+    print(f"[3 multi] iter_decode_batches on [{names}]: {len(order)} x "
+          f"B=256 at scale 1 uint8 and scale 2 bfloat16-normalised: every "
+          f"batch == oracle, one tensor on {dev}; launches rgb="
+          f"{counts['rgb']} rgb_scaled={counts['rgb_scaled']} raster="
+          f"{counts['raster']} plain_on_cuda={counts['plain_on_cuda']} ({n} "
+          f"groups a batch)", flush=True)
+
+    crop_blobs, crop_refs = crop_set
+    boxes = [(2 * int(rng.integers(0, (r.shape[0] - 224) // 2 + 1)),
+              2 * int(rng.integers(0, (r.shape[1] - 224) // 2 + 1)))
+             for r in crop_refs[1]]
+    reset_launch_counts()
+    for scale, dtype_name in ((1, None), (2, "bfloat16")):
+        kw, _ = batch_options(torch, dtype_name)
+        got, _ = decode_batch_crops(crop_blobs, boxes, (224, 224),
+                                    scale=scale, device=two, **kw)
+        want, _ = decode_batch_crops(crop_blobs, boxes, (224, 224),
+                                     scale=scale, device=dev, **kw)
+        if not torch.equal(got, want):
+            fail(f"two-shard decode_batch_crops (scale {scale}) != one "
+                 f"device")
+    counts = launch_counts()
+    if counts["raster"] != 2 * (n + 1) or counts["plain_on_cuda"]:
+        fail(f"two-shard crops: launches {counts} (raster {n} + 1 a "
+             f"configuration expected)")
+    print(f"[3 multi] decode_batch_crops on [{names}], "
+          f"{len(crop_blobs)} images, scale 1 uint8 and 2 bfloat16: == one "
+          f"device; launches raster={counts['raster']} ({n} + 1 a "
+          f"configuration)", flush=True)
+
+    one_rates, one_rep = engine_mps(torch, DecodeEngine(device=dev), paths)
+    two_rates, two_rep = engine_mps(torch, DecodeEngine(device=two), paths)
+    print(f"[3 multi] engine e2e on the corpus, BMPs written, MP/s: one "
+          f"device {', '.join(f'{r:.1f}' for r in one_rates)} (median "
+          f"{statistics.median(one_rates):.1f}); [{names}] "
+          f"{', '.join(f'{r:.1f}' for r in two_rates)} (median "
+          f"{statistics.median(two_rates):.1f}). d2h / write seconds of the "
+          f"last run: "
+          f"{one_rep.timers.snapshot()['d2h'][0]:.3f} / "
+          f"{one_rep.timers.snapshot()['write'][0]:.3f} against "
+          f"{two_rep.timers.snapshot()['d2h'][0]:.3f} / "
+          f"{two_rep.timers.snapshot()['write'][0]:.3f} | {card}", flush=True)
+
+    def batch_rate(devices) -> float:
+        t0 = time.monotonic()
+        n = 0
+        for out, headers in iter_decode_batches(
+                ([blobs[i] for i in idx] for idx in order), device=devices):
+            n += len(headers)
+        torch.cuda.synchronize()
+        return n / (time.monotonic() - t0)
+
+    rates = {"one": [], "two": []}
+    for _ in range(3):
+        rates["one"].append(batch_rate(dev))
+        rates["two"].append(batch_rate(two))
+    print(f"[3 multi] iter_decode_batches {len(order)} x B=256, scale 1 "
+          f"uint8, images/s: one device "
+          f"{', '.join(f'{r:.0f}' for r in rates['one'])} (median "
+          f"{statistics.median(rates['one']):.0f}); [{names}] "
+          f"{', '.join(f'{r:.0f}' for r in rates['two'])} (median "
+          f"{statistics.median(rates['two']):.0f}), in turns | {card}",
+          flush=True)
+    if len(set(two)) == 1:
+        concat_costs(torch, dev, card)
+    scaling_ranks(devices, root, tmp, card)
+    print(f"[3 multi] phase wall {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 
 def phase_tool():
@@ -2348,9 +2712,44 @@ def device_busy(torch, fn, label: str) -> str:
 
 # --- main --------------------------------------------------------------------
 
-def main() -> int:
+def cards_only(torch, dev, card: str, root: str, tmp: str, paths, oracles,
+               blobs, imagenet, scaled_oracles, crop_set) -> int:
+    """``--cards``: every kernel that prepares attributes on each card,
+    then phase ``[3 multi]`` over every card against one card (the engine's
+    one-card digests made here), then the last line."""
+    from pim_jpeg_decoder_tpu_torch.parallel.mesh import make_mesh
+    from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
+
+    devices = make_mesh()
+    if len(devices) < 2:
+        fail(f"--cards needs two cards or more, found {len(devices)}")
+    per_card_kernels(torch, devices, card)
+    if DecodeEngine(device=dev).decode_paths(paths).ok_count != len(paths):
+        fail("the one-card engine failed files")
+    phase_multi(torch, dev, devices, card, root, tmp, paths, oracles,
+                bmp_digests(paths), [blobs[p] for p in imagenet],
+                {1: [oracles[p] for p in imagenet],
+                 2: [scaled_oracles[p] for p in imagenet]}, crop_set)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--cards", action="store_true",
+        help="only the device-list paths over every local card (two or "
+             "more), held against one card: the launchers' per-card "
+             "preparation and the split over cards that a one-card "
+             "machine cannot show")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
              "CUDA card")
@@ -2384,13 +2783,16 @@ def main() -> int:
         crop_set = ([blobs[p] for p in crop_paths],
                     {1: [oracles[p] for p in crop_paths],
                      2: [scaled_oracles[p] for p in crop_paths]})
+        dev = torch.device("cuda", 0)
+        if args.cards:
+            return cards_only(torch, dev, card, root, tmp, paths, oracles,
+                              blobs, imagenet, scaled_oracles, crop_set)
         print(f"[3 slice] corpus of {len(paths)} JPEGs encoded and oracle "
               f"rasters (full and 1/2 scale) built in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
 
-        dev = torch.device("cuda", 0)
         max_err = phase_kernels(torch, dev, oracle_images)
-        counts = phase_slice(dev, paths, oracles, scaled_oracles)
+        counts, base = phase_slice(dev, paths, oracles, scaled_oracles)
         counts.update({k: v for k, v in phase_profile(dev, paths, tmp).items()
                        if k in STAGES})
         counts.update({k: v for k, v in phase_batches(
@@ -2398,6 +2800,11 @@ def main() -> int:
             {1: [oracles[p] for p in imagenet],
              2: [scaled_oracles[p] for p in imagenet]},
             crop_set).items() if k in ("rgb_scaled", "raster")})
+        phase_multi(torch, dev, [dev, dev], card, root, tmp, paths, oracles,
+                    base,
+                    [blobs[p] for p in imagenet],
+                    {1: [oracles[p] for p in imagenet],
+                     2: [scaled_oracles[p] for p in imagenet]}, crop_set)
         record, tool_counts = phase_tool()
         counts.update({k: tool_counts[k] for k in KERNEL_OPT_COUNTERS})
         counts.update(phase_ab_tools())

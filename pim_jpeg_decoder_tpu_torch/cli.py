@@ -1,7 +1,8 @@
 """Command-line entry: ``python -m pim_jpeg_decoder_tpu_torch <jpegs...>``
 
 The JAX package's CLI flags, plus ``--device``: the inputs are sorted by
-size, decoded through the pipelined engine on one device, a BMP is written
+size, decoded through the pipelined engine (by default over every local
+card; ``PIM_JPEG_TPU_NUM_DEVICES`` keeps the first n), a BMP is written
 next to each input (extension replaced with .bmp), and a "Profiles:" block
 is printed at exit: host stage times, the device program init, and the
 per-phase device breakdown (``--device-profile``; cached under
@@ -24,8 +25,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     parser.add_argument("files", nargs="+", help="JPEG files to decode")
     parser.add_argument("--device", default="cuda",
-                        help="torch device: cuda (default), cuda:N, or cpu "
-                             "(the kernels' plain PyTorch versions)")
+                        help="torch device: cuda (default: every local "
+                             "card), cuda:N, or cpu (the kernels' plain "
+                             "PyTorch versions)")
     parser.add_argument("--batch-mcus", type=int, default=None,
                         help="MCUs per packed device batch")
     parser.add_argument("--lane-tile", type=int, default=None,
@@ -79,14 +81,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             transport=args.transport,
             wire=args.wire,
         ), device=args.device)
-    except (ValueError, NotImplementedError, RuntimeError) as e:
+    except (ValueError, RuntimeError) as e:
         parser.error(str(e))
     if not args.quiet:
+        # Allocation banner: the devices the engine drives.
         import torch
-        dev = engine.device
-        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "host CPU")
-        print(f"1 {dev.type} device allocated ({dev}: {name})")
+        devs = engine.devices
+        names = ", ".join(
+            f"{d}: {torch.cuda.get_device_name(d)}" if d.type == "cuda"
+            else f"{d}: host CPU" for d in devs)
+        print(f"{len(devs)} {devs[0].type} device(s) allocated ({names})")
     report = engine.decode_paths(args.files, write=not args.no_write,
                                  sort=not args.no_sort)
 

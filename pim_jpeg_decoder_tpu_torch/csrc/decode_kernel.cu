@@ -609,7 +609,7 @@ using KernelFn = void (*)(const T*, const int32_t*, const int32_t*, int,
 
 // The tile kernel of one decode form (N == 8: ycbcr_kernel or rgb_kernel;
 // else rgb_scaled_kernel at N points) and its dynamic shared memory,
-// prepared once per instantiation.
+// prepared once per instantiation and device.
 template <typename T, int H, int V, int NC, bool YCBCR, int N, bool VEC16>
 cudaError_t kernel_of(KernelFn<T>& fn, int& smem) {
   constexpr int G = NC == 1 ? 1 : H * V + 2;
@@ -623,9 +623,9 @@ cudaError_t kernel_of(KernelFn<T>& fn, int& smem) {
     fn = rgb_scaled_kernel<T, H, V, NC, N, VEC16>;
     smem = ScaledLayout<T, H, V, NC, N>::kBytes;
   }
-  static const cudaError_t ready =
-      prepare(reinterpret_cast<const void*>(fn), smem);
-  return ready;
+  static PerDevice prepared;
+  return prepared.get(
+      [&] { return prepare(reinterpret_cast<const void*>(fn), smem); });
 }
 
 // The kernel a decode launches (TILE_THREADS threads a TILE_MCUS tile):

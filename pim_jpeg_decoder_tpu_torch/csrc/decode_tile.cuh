@@ -12,6 +12,8 @@
 
 #include <cuda_pipeline.h>
 
+#include <mutex>
+
 #include "decode_common.cuh"
 
 namespace {
@@ -322,5 +324,28 @@ inline cudaError_t prepare(const void* kernel, int smem) {
   }
   return e;
 }
+
+// A kernel's preparation made once for each device: function attributes
+// act on the current device only, so a kernel prepared on one card is
+// prepared again on the first launch that runs on another.  A launcher
+// keeps one of these in a function-local static and passes it the
+// preparation; the current device picks the slot.
+class PerDevice {
+ public:
+  template <typename Prepare>
+  cudaError_t get(Prepare prepare) {
+    int device = 0;
+    const cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::call_once(once_[device], [&] { result_[device] = prepare(); });
+    return result_[device];
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::once_flag once_[kMaxDevices];
+  cudaError_t result_[kMaxDevices] = {};
+};
 
 }  // namespace

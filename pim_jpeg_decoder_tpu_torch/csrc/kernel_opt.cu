@@ -663,9 +663,9 @@ using MemfloorFn = void (*)(const T*, uint8_t*, long long);
 enum class Variant { kMemfloor, kTruerez, kStacked };
 
 // The tile kernel (truerez or stacked) of one mode and store form and its
-// dynamic shared memory, prepared once per instantiation (the stacked
-// kernel's is above the 48 KB static limit).  The layouts' bank claims
-// are checked here, at build time.
+// dynamic shared memory, prepared once per instantiation and device (the
+// stacked kernel's is above the 48 KB static limit).  The layouts' bank
+// claims are checked here, at build time.
 template <typename T, int H, int V, bool VEC16>
 cudaError_t tile_kernel(Variant var, KernelFn<T>& fn, int& smem) {
   static_assert(stacked_conflict_free<StackedLayout<T, H * V>::kScratch>(),
@@ -675,15 +675,15 @@ cudaError_t tile_kernel(Variant var, KernelFn<T>& fn, int& smem) {
   if (var == Variant::kTruerez) {
     fn = rgb_truerez_kernel<T, H, V, VEC16>;
     smem = TileLayout<T, H * V + 2>::kBytes;
-    static const cudaError_t ready =
-        prepare(reinterpret_cast<const void*>(fn), smem);
-    return ready;
+    static PerDevice prepared;
+    return prepared.get(
+        [&] { return prepare(reinterpret_cast<const void*>(fn), smem); });
   }
   fn = rgb_stacked_kernel<T, H, V, VEC16>;
   smem = StackedLayout<T, H * V>::kBytes;
-  static const cudaError_t ready =
-      prepare(reinterpret_cast<const void*>(fn), smem);
-  return ready;
+  static PerDevice prepared;
+  return prepared.get(
+      [&] { return prepare(reinterpret_cast<const void*>(fn), smem); });
 }
 
 // tile_kernel for a launch with 16-byte row stores (vec16) or byte stores.

@@ -714,11 +714,12 @@ unsigned mxu64_grid(long long num_blocks) {
 }
 
 // mxu64_kernel's dynamic shared memory (above the 48 KB static limit) and
-// the largest carveout, once.
+// the largest carveout, once a device.
 cudaError_t mxu64_ready() {
-  static const cudaError_t ready =
-      prepare(reinterpret_cast<const void*>(mxu64_kernel), M64_SMEM);
-  return ready;
+  static PerDevice prepared;
+  return prepared.get([] {
+    return prepare(reinterpret_cast<const void*>(mxu64_kernel), M64_SMEM);
+  });
 }
 
 // The CUDA blocks of mxu2pass_kernel<PIECES> an SM holds and their static

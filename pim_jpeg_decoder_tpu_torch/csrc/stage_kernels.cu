@@ -388,9 +388,10 @@ int dequant_occupancy(int g, int* blocks) {
       blocks, kernel, DEQ_THREADS, 0));
 }
 
-// The largest shared-memory carveout for a kernel, asked once per kernel,
-// so that shared memory does not cap the blocks an SM holds (8 IDCT blocks
-// of 17.9 KB; registers hold the 4:2:0 colour tile, 27.8 KB, to 4).
+// The largest shared-memory carveout for a kernel, asked once per kernel
+// and device, so that shared memory does not cap the blocks an SM holds (8
+// IDCT blocks of 17.9 KB; registers hold the 4:2:0 colour tile, 27.8 KB,
+// to 4).
 inline cudaError_t max_shared(const void* kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -414,8 +415,8 @@ inline int occupancy(const void* kernel, cudaError_t ready, int threads,
 
 const void* idct_kernel(cudaError_t& ready) {
   const void* kernel = reinterpret_cast<const void*>(idct_stage_kernel);
-  static const cudaError_t prepared = max_shared(kernel);
-  ready = prepared;
+  static PerDevice prepared;
+  ready = prepared.get([kernel] { return max_shared(kernel); });
   return kernel;
 }
 
@@ -423,8 +424,8 @@ template <int H, int V, int NC, bool VEC8>
 const void* color_kernel(cudaError_t& ready) {
   const void* kernel =
       reinterpret_cast<const void*>(color_stage_kernel<H, V, NC, VEC8>);
-  static const cudaError_t prepared = max_shared(kernel);
-  ready = prepared;
+  static PerDevice prepared;
+  ready = prepared.get([kernel] { return max_shared(kernel); });
   return kernel;
 }
 

@@ -1,10 +1,10 @@
 """Device-resident batch decode on PyTorch: JPEG bytes -> training batch.
 
-Counterpart of ``pim_jpeg_decoder_tpu/models/input_pipeline.py`` on one
-device, with the same functions, arguments (a ``device`` in place of
-``mesh``, a torch floating ``dtype`` in place of a jnp one, and no
-``lane_tile``: the CUDA kernels take any MCU count, so the transport is
-not padded), validation messages and results.  The decoded pixels never
+Counterpart of ``pim_jpeg_decoder_tpu/models/input_pipeline.py``, with the
+same functions, arguments (a ``device`` in place of ``mesh``, a torch
+floating ``dtype`` in place of a jnp one, and no ``lane_tile``: the CUDA
+kernels take any MCU count, so the transport is not padded), validation
+messages and results.  The decoded pixels never
 leave the card: the host ships coefficients (5-10x fewer bytes than RGB)
 and gets back nothing.
 
@@ -19,9 +19,18 @@ and gets back nothing.
                                     normalisation in one pass) ->
                                     ``[B, H, W, 3]`` on the device
 
+``device`` may be a list of devices (the JAX package's ``mesh=``): the
+batch splits into one contiguous group of whole images per device (sizes
+differ by at most one; a device left without an image is skipped), each
+device runs the H2D copy, the decode kernel and the raster epilogue on its
+group, and the groups come to ``devices[0]``, where one ``torch.cat``
+makes the result.  It equals the one-device result element for element.
+The JAX package returns one array sharded over the batch axis; PyTorch
+has no tensor sharded over devices, so the result lies whole on
+``devices[0]``.
+
 The JAX module imports ``jax`` at the top, so its host halves are
-rewritten here rather than imported.  Multi-GPU decode is ROADMAP.md
-Queue 1, item 11: a request for more than one device raises.
+rewritten here rather than imported.
 """
 
 from __future__ import annotations
@@ -42,10 +51,12 @@ from pim_jpeg_decoder_tpu_torch.codec.header import JpegError, JpegHeader
 from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
 from pim_jpeg_decoder_tpu_torch.ops import specs as S
 from pim_jpeg_decoder_tpu_torch.models.pipeline import (build_qpool,
-                                                        entropy_decode,
-                                                        resolve_device)
+                                                        entropy_decode)
 from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (decode_mcus,
                                                           raster_epilogue)
+from pim_jpeg_decoder_tpu_torch.parallel.mesh import devices_of
+from pim_jpeg_decoder_tpu_torch.parallel.sharding import (adopt, copy_to,
+                                                          gather)
 from pim_jpeg_decoder_tpu_torch.runtime.batching import compact_wire
 
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -101,17 +112,22 @@ def _check_wire(wire: str) -> None:
         raise ValueError(f"wire must be auto/i16, got {wire!r}")
 
 
-def _one_device(device) -> torch.device:
-    """The one device a batch decodes on; a list of devices is a multi-GPU
-    request, which is not ported yet."""
-    if isinstance(device, (list, tuple)):
-        raise NotImplementedError(
-            f"multi-GPU batch decode over {list(device)} is not ported yet "
-            f"(ROADMAP.md Queue 1, item 11); pass one device")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+def _on_card(devices) -> bool:
+    """Whether any device is a card (the host stage then page-locks)."""
+    return any(d.type == "cuda" for d in devices)
+
+
+def _groups(batch: int, n: int) -> List[Tuple[int, int]]:
+    """Image ranges ``[b0, b1)`` of ``n`` contiguous groups of a batch,
+    sizes differing by at most one; empty groups are left out."""
+    base, extra = divmod(batch, n)
+    bounds, b0 = [], 0
+    for k in range(n):
+        b1 = b0 + base + (k < extra)
+        if b1 > b0:
+            bounds.append((b0, b1))
+        b0 = b1
+    return bounds
 
 
 def _scan_same_size(blobs: Sequence[bytes], caller: str):
@@ -303,53 +319,43 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                    crop_w // scale)
 
 
-_H2D_STREAMS: Dict[int, torch.cuda.Stream] = {}
-
-
-def _to_device(tensors, device: torch.device) -> List[torch.Tensor]:
-    """Copy page-locked host tensors on a side stream; the current stream
-    waits on its event, and owns the copies from then on."""
-    if device.type == "cpu":
-        return list(tensors)
-    with _LOCK:
-        side = _H2D_STREAMS.get(device.index)
-        if side is None:
-            side = _H2D_STREAMS[device.index] = torch.cuda.Stream(device)
-    with torch.cuda.stream(side):
-        out = [t.to(device, non_blocking=True) for t in tensors]
-        ready = side.record_event()
-    launch = torch.cuda.current_stream(device)
-    launch.wait_event(ready)
-    for t in out:
-        # Allocated on the side stream, used on this one: keep the caching
-        # allocator from reusing them too early.
-        t.record_stream(launch)
-    return out
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def _dispatch(staged: _Staged, scale: int, norm, device: torch.device,
-              timers=None):
-    """Device half: H2D + decode kernel + raster epilogue (asynchronous).
-    With ``timers``, the h2d and device stages synchronise at their
-    boundaries so the split is attributable (a profiling run)."""
-    with _tstage(timers, "h2d"):
-        coeffs, qidx, qpool, *offsets = _to_device(staged.arrays, device)
-        if timers is not None:
-            _sync(device)
-    with _tstage(timers, "device"):
-        raw = decode_mcus(coeffs, qidx, qpool, staged.mode, raw=True,
-                          scale=scale)
-        out = raster_epilogue(raw, staged.mode, scale, len(staged.headers),
-                              staged.gh, staged.gw, staged.out_h,
-                              staged.out_w, *offsets, norm=norm)
-        if timers is not None:
-            _sync(device)
-    return out, staged.headers
+def _dispatch(staged: _Staged, scale: int, norm, devices, timers=None):
+    """Device half (asynchronous): for each device's group of whole
+    images, H2D on the device's side stream (its current stream waits on
+    the copy's event) + decode kernel + raster epilogue; then the groups
+    on ``devices[0]``, joined.  Every group gets the whole (small)
+    quantizer pool, so its ``qidx`` stays the batch's.  With ``timers``,
+    the h2d and device stages synchronise at their boundaries so the
+    split is attributable (a profiling run)."""
+    coeffs, qidx, qpool, *offsets = staged.arrays
+    per_img = staged.gh * staged.gw
+    outs = []
+    for (b0, b1), dev in zip(_groups(len(staged.headers), len(devices)),
+                             devices):
+        with _tstage(timers, "h2d"):
+            group, ready = copy_to(
+                [coeffs[b0 * per_img:b1 * per_img],
+                 qidx[b0 * per_img:b1 * per_img], qpool,
+                 *(o[b0:b1] for o in offsets)], dev)
+            adopt(group, ready, dev)
+            if timers is not None:
+                _sync(dev)
+        with _tstage(timers, "device"):
+            c, q, p, *offs = group
+            raw = decode_mcus(c, q, p, staged.mode, raw=True, scale=scale)
+            outs.append(raster_epilogue(
+                raw, staged.mode, scale, b1 - b0, staged.gh, staged.gw,
+                staged.out_h, staged.out_w, *offs, norm=norm))
+            if timers is not None:
+                _sync(dev)
+    if len(outs) == 1:
+        return outs[0], staged.headers
+    return gather(outs, axis=0, device=devices[0]), staged.headers
 
 
 def decode_same_size_batch(
@@ -377,19 +383,21 @@ def decode_same_size_batch(
     cast last, in the same pass as the raster layout.  ``timers``
     (optional ``utils.profiling.StageTimers``) accumulates scan / entropy /
     stage / h2d / device seconds, synchronising at the device stages;
-    leave it None on the throughput path.  For back-to-back batches use
-    :func:`iter_decode_batches`.
+    leave it None on the throughput path.  A list of devices splits the
+    batch into groups of whole images, one a device, and returns the
+    joined tensor on the first (see the module docstring).  For
+    back-to-back batches use :func:`iter_decode_batches`.
     """
     _check_scale(scale)
     _check_wire(wire)
     norm = _norm_static(dtype, mean, std)
     if not blobs:
         raise ValueError("empty batch")
-    dev = _one_device(device)
+    devices = devices_of(device)
     staged = _host_stage(blobs, prepare_threads, wire,
-                         "decode_same_size_batch", scale, dev.type == "cuda",
+                         "decode_same_size_batch", scale, _on_card(devices),
                          timers)
-    return _dispatch(staged, scale, norm, dev, timers)
+    return _dispatch(staged, scale, norm, devices, timers)
 
 
 def _prefetched(stage_thunks, prefetch: int):
@@ -445,7 +453,7 @@ def iter_decode_batches(
     _check_scale(scale)
     _check_wire(wire)
     norm = _norm_static(dtype, mean, std)
-    dev = _one_device(device)
+    devices = devices_of(device)
 
     def stage_thunks():
         for batch in blob_batches:
@@ -454,10 +462,10 @@ def iter_decode_batches(
                 raise ValueError("empty batch")
             yield functools.partial(
                 _host_stage, blobs, prepare_threads, wire,
-                "iter_decode_batches", scale, dev.type == "cuda", timers)
+                "iter_decode_batches", scale, _on_card(devices), timers)
 
     for staged in _prefetched(stage_thunks(), prefetch):
-        yield _dispatch(staged, scale, norm, dev, timers)
+        yield _dispatch(staged, scale, norm, devices, timers)
 
 
 def decode_same_size_batch_crops(
@@ -484,12 +492,12 @@ def decode_same_size_batch_crops(
     :func:`decode_same_size_batch`.
     """
     norm = _norm_static(dtype, mean, std)
-    dev = _one_device(device)
+    devices = devices_of(device)
     staged = _host_stage_crops(blobs, boxes, crop_hw, scale,
                                prepare_threads, wire,
                                "decode_same_size_batch_crops", True,
-                               dev.type == "cuda")
-    return _dispatch(staged, scale, norm, dev)
+                               _on_card(devices))
+    return _dispatch(staged, scale, norm, devices)
 
 
 def decode_batch_crops(
@@ -511,11 +519,11 @@ def decode_batch_crops(
     :func:`decode_same_size_batch_crops`.
     """
     norm = _norm_static(dtype, mean, std)
-    dev = _one_device(device)
+    devices = devices_of(device)
     staged = _host_stage_crops(blobs, boxes, crop_hw, scale,
                                prepare_threads, wire, "decode_batch_crops",
-                               False, dev.type == "cuda")
-    return _dispatch(staged, scale, norm, dev)
+                               False, _on_card(devices))
+    return _dispatch(staged, scale, norm, devices)
 
 
 def iter_decode_batch_crops(
@@ -540,14 +548,14 @@ def iter_decode_batch_crops(
     worker threads.
     """
     norm = _norm_static(dtype, mean, std)
-    dev = _one_device(device)
+    devices = devices_of(device)
 
     def stage_thunks():
         for blobs, boxes in crop_batches:
             yield functools.partial(
                 _host_stage_crops, list(blobs), list(boxes), crop_hw, scale,
                 prepare_threads, wire, "iter_decode_batch_crops",
-                not mixed_sizes, dev.type == "cuda")
+                not mixed_sizes, _on_card(devices))
 
     for staged in _prefetched(stage_thunks(), prefetch):
-        yield _dispatch(staged, scale, norm, dev)
+        yield _dispatch(staged, scale, norm, devices)

@@ -11,20 +11,21 @@ the JAX package's host layer, at the same relative paths:
   raster assembly / BMP               native.binding C++ finishers, io/bmp.py
 
 Every device is explicit: ``device="cuda"`` on a machine without a card
-raises instead of running on the CPU.  ``decode_scaled`` (reduced-IDCT
-kernel) and ``decode_region`` (crop box) are the JAX package's
-single-image variants; device-resident batches are in
-``models/input_pipeline.py``.
+raises instead of running on the CPU.  ``device`` may also be a list of
+devices (the JAX package's ``mesh=``): the image's MCU grid is then split
+into one contiguous shard per device (``parallel/sharding.py``).
+``decode_scaled`` (reduced-IDCT kernel) and ``decode_region`` (crop box)
+are the JAX package's single-image variants; device-resident batches are
+in ``models/input_pipeline.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from pim_jpeg_decoder_tpu_torch.codec.header import JpegHeader
 from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
@@ -33,20 +34,9 @@ from pim_jpeg_decoder_tpu_torch.native import native_available
 from pim_jpeg_decoder_tpu_torch.native.binding import (raster_rgb_cpp,
                                                        ycbcr_to_rgb_cpp)
 from pim_jpeg_decoder_tpu_torch.ops import specs as S
-from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (coeffs_to_device,
-                                                          decode_mcus,
-                                                          qpool_to_device)
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but "
-                           f"torch.cuda.is_available() is False")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
-    return dev
+from pim_jpeg_decoder_tpu_torch.parallel.mesh import MCU_AXIS, devices_of
+from pim_jpeg_decoder_tpu_torch.parallel.sharding import (
+    decode_mcus_sharded, gather)
 
 
 def entropy_decode(header: JpegHeader, out=None,
@@ -78,6 +68,20 @@ def _require_native() -> None:
     if not native_available():
         raise RuntimeError("the native C++ host library is unavailable "
                            "(needs g++; PIM_JPEG_TPU_NO_NATIVE unset)")
+
+
+def assemble_raster_slots(header: JpegHeader,
+                          slot_rgb: np.ndarray) -> np.ndarray:
+    """Slot-major kernel output ``[num_mcus, luma_slots, 64, 3]`` (the
+    ``raw=False`` layout) -> ``[H, W, 3]``: MCU grid, luma slots (V, H)
+    in each MCU, 8x8 column-major pixels in each slot."""
+    mode = S.mode_for(header.mode_key)
+    gh, gw = header.mcu_rows, header.mcu_cols
+    img = (slot_rgb[: gh * gw]
+           .reshape(gh, gw, mode.v, mode.h, 8, 8, 3)
+           .transpose(0, 2, 5, 1, 3, 4, 6)
+           .reshape(gh * mode.v * 8, gw * mode.h * 8, 3))
+    return np.ascontiguousarray(img[: header.height, : header.width])
 
 
 def assemble_raster_raw(header: JpegHeader, raw_rgb: np.ndarray,
@@ -124,19 +128,30 @@ class DecodeResult:
     header: JpegHeader
 
 
-def _decode_grid(header: JpegHeader, coeffs: np.ndarray, dev: torch.device,
+def _decode_grid(header: JpegHeader, coeffs: np.ndarray, devices,
                  **kw) -> np.ndarray:
-    """Decode one image's (or sub-grid's) coefficients on ``dev`` with the
-    image's own quantizers; returns the kernel output on the host."""
+    """Decode one image's (or sub-grid's) coefficients with the image's
+    own quantizers, the MCU axis padded to a multiple of the device count
+    (the JAX package's ``_pad_for_mesh``) and split into one shard per
+    device; returns the gathered kernel output on the host."""
     mode = S.mode_for(header.mode_key)
-    x = coeffs_to_device(coeffs, dev)
-    qidx = torch.zeros(coeffs.shape[0], dtype=torch.int32, device=dev)
-    qpool = qpool_to_device(build_qpool([header], mode), dev)
-    return decode_mcus(x, qidx, qpool, mode, **kw).cpu().numpy()
+    m, n = coeffs.shape[0], len(devices)
+    m_pad = -(-m // n) * n
+    if m_pad != m:
+        coeffs = np.concatenate(
+            [coeffs, np.zeros((m_pad - m, mode.g, 64), coeffs.dtype)])
+    outs = decode_mcus_sharded(coeffs, np.zeros(m_pad, np.int32),
+                               build_qpool([header], mode), mode, devices,
+                               **kw)
+    # The MCU axis is the last of the raw and YCbCr layouts, the first of
+    # the slot-major one.
+    raw_layout = kw.get("raw") or kw.get("ycbcr")
+    return gather(outs, axis=MCU_AXIS if raw_layout else 0).numpy()
 
 
 class TorchJpegDecoder:
-    """Single-stream decoder: one image per device call on ``device``.
+    """Single-stream decoder: one image per device call on ``device``, or
+    over a list of devices, one contiguous MCU shard each.
 
     ``transport`` picks the kernel as in the JAX package: "auto" fetches
     YCbCr planes when they are fewer bytes than RGB (every mode but 4:4:4),
@@ -148,7 +163,8 @@ class TorchJpegDecoder:
         if transport not in ("auto", "rgb", "ycbcr"):
             raise ValueError(
                 f"transport must be auto/rgb/ycbcr, got {transport!r}")
-        self.device = resolve_device(device)
+        self.devices = devices_of(device)
+        self.device = self.devices[0]
         self.transport = transport
 
     def decode(self, data: bytes) -> DecodeResult:
@@ -157,11 +173,14 @@ class TorchJpegDecoder:
         mode = S.mode_for(header.mode_key)
         ycbcr = (self.transport == "ycbcr"
                  or (self.transport == "auto" and mode.ycbcr_saves_bytes))
-        host = _decode_grid(header, coeffs, self.device, raw=not ycbcr,
+        host = _decode_grid(header, coeffs, self.devices, raw=not ycbcr,
                             ycbcr=ycbcr)
         if ycbcr:
             return DecodeResult(assemble_raster_ycbcr(header, host), header)
         return DecodeResult(assemble_raster_raw(header, host), header)
+
+    def decode_batch(self, blobs: Sequence[bytes]) -> List[DecodeResult]:
+        return [self.decode(b) for b in blobs]
 
 
 def decode_bytes(data: bytes, device="cuda") -> np.ndarray:
@@ -177,9 +196,9 @@ def decode_scaled(data: bytes, scale: int, device="cuda") -> np.ndarray:
         raise ValueError(f"scale must be 1, 2, 4 or 8, got {scale}")
     if scale == 1:
         return decode_bytes(data, device)
-    dev = resolve_device(device)
+    devices = devices_of(device)
     header = scan_jpeg(data)
-    raw = _decode_grid(header, entropy_decode(header), dev, raw=True,
+    raw = _decode_grid(header, entropy_decode(header), devices, raw=True,
                        scale=scale)
     return assemble_raster_raw_scaled(header, raw, scale)
 
@@ -190,7 +209,7 @@ def decode_region(data: bytes, y0: int, x0: int, height: int, width: int,
     decodes the MCU sub-grid covering the box, and the pixels equal the
     same slice of a full decode.  Counterpart of the JAX package's
     ``decode_region``."""
-    dev = resolve_device(device)
+    devices = devices_of(device)
     header = scan_jpeg(data)
     if not (0 <= y0 and 0 <= x0 and height > 0 and width > 0
             and y0 + height <= header.height and x0 + width <= header.width):
@@ -211,11 +230,11 @@ def decode_region(data: bytes, y0: int, x0: int, height: int, width: int,
     sub_header = dataclasses.replace(header, height=(r1 - r0) * px_h,
                                      width=(c1 - c0) * px_w)
     if mode.ycbcr_saves_bytes:
-        planes = _decode_grid(header, sub, dev, ycbcr=True)
+        planes = _decode_grid(header, sub, devices, ycbcr=True)
         raster = assemble_raster_ycbcr(sub_header, planes)
     else:
         raster = assemble_raster_raw(
-            sub_header, _decode_grid(header, sub, dev, raw=True))
+            sub_header, _decode_grid(header, sub, devices, raw=True))
     oy, ox = y0 - r0 * px_h, x0 - c0 * px_w
     return np.ascontiguousarray(raster[oy:oy + height, ox:ox + width])
 

@@ -60,16 +60,17 @@ class PreparedImage:
 
 @dataclasses.dataclass
 class Batch:
-    """One device launch.  ``coeffs``/``qidx``/``qpool`` start as NumPy
-    arrays and are replaced by device tensors when the batch is staged;
-    ``ready`` is then the CUDA event the launch must wait for."""
+    """One device launch (a shard a device).  ``coeffs``/``qidx``/``qpool``
+    start as NumPy arrays; staging moves them into ``placed``
+    (``parallel.sharding.Placed``: the shards on their devices and the
+    events their launches wait for) and clears them."""
     mode: S.ModeSpec
     coeffs: Any                 # [alloc, g, 64] int16 / int8
     qidx: Any                   # [alloc] int32
     qpool: Any                  # [Q, g, 64] float32, int32 once staged
     images: List[Tuple[PreparedImage, int]]   # (image, mcu_offset)
     transport: str = "rgb"      # set at dispatch: "rgb" | "ycbcr"
-    ready: Any = None
+    placed: Any = None
 
 
 class BatchPacker:

@@ -1,7 +1,8 @@
 """The decode engine: producer/consumer pipeline around the CUDA kernels.
 
-Counterpart of ``pim_jpeg_decoder_tpu/runtime/engine.py`` on one explicit
-device, with the same stages and failure semantics:
+Counterpart of ``pim_jpeg_decoder_tpu/runtime/engine.py``, with the same
+stages and failure semantics, on one device or a list of them (by default
+every local card, as the JAX engine takes every local chip):
 
   prepare pool (N threads)   read + marker scan + C++ entropy decode
         |                    (the native code releases the GIL)
@@ -9,12 +10,15 @@ device, with the same stages and failure semantics:
   ModeRouter / BatchPacker   greedy budget packing per sampling mode
         |                    (dedicated launches for big images, MCU tiles
         |                    for images over the launch cap)
-        v  H2D on a side stream: pinned host copy -> non_blocking copy,
-        |  with an event the launch waits on
+        v  H2D (parallel/sharding.place_for_mesh): one contiguous MCU
+        |  shard a device, pinned host copy -> non_blocking copy on the
+        |  device's side stream, with an event the launch waits on
         v  bounded queue (backpressure)
-  consumer thread            kernel on the current stream -> D2H into a
-                             pinned buffer (event) -> raster assembly /
-                             fused BMP write on a finish pool
+  consumer thread            kernel on each device's current stream ->
+                             D2H of each shard into a pinned buffer of its
+                             own (event) -> raster assembly / fused BMP
+                             write on a finish pool, each image read from
+                             the shard that holds it
 
 Per-file failures are recorded and skipped; one image's failure never
 poisons the others of its batch.
@@ -48,9 +52,14 @@ from pim_jpeg_decoder_tpu_torch.models.pipeline import (
     assemble_raster_ycbcr,
     entropy_decode,
     output_path,
-    resolve_device,
 )
-from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import decode_mcus
+from pim_jpeg_decoder_tpu_torch.parallel.mesh import devices_of, make_mesh
+from pim_jpeg_decoder_tpu_torch.parallel.sharding import (
+    decode_mcus_sharded,
+    mcu_window,
+    place_for_mesh,
+    to_host,
+)
 from pim_jpeg_decoder_tpu_torch.runtime.batching import (
     Batch,
     ModeRouter,
@@ -101,6 +110,10 @@ class EngineReport:
     dispatch_times: Dict[tuple, list] = dataclasses.field(
         default_factory=dict)
     device: Optional[torch.device] = None
+    # Every device the engine drives, and the batches that ran on the first
+    # alone (M not a multiple of devices x lane_tile).
+    devices: Tuple[torch.device, ...] = ()
+    one_device_batches: int = 0
 
     @property
     def ok_count(self) -> int:
@@ -130,6 +143,10 @@ class EngineReport:
         if "kernel" in snap:
             lines.append(f" - The number of device launches: "
                          f"{snap['kernel'][1]}")
+        if len(self.devices) > 1:
+            lines.append(f" - Batches on one of the {len(self.devices)} "
+                         f"devices (M not a multiple of devices x lane_tile)"
+                         f": {self.one_device_batches}")
         lines.append(f" - Decoded files: {self.ok_count}/{len(self.results)}")
         lines.append(f" - Total megapixels: {self.total_megapixels:.2f}")
         on_card = self.device is not None and self.device.type == "cuda"
@@ -163,16 +180,20 @@ def _fail(results: Dict[int, FileResult], images, error: str) -> None:
 
 
 class DecodeEngine:
-    """High-throughput multi-image decoder on one device.
+    """High-throughput multi-image decoder on one device or several.
 
     Args:
       budget_mcus: MCUs per packed device batch.
-      lane_tile: MCU alignment of every launch size (keeps launch sizes on
-        the JAX engine's grid; the kernel itself takes any count).
+      lane_tile: MCU alignment of every shard's launch size (keeps launch
+        sizes on the JAX engine's grid; the kernel itself takes any count).
       prepare_threads: host entropy-decode parallelism.
       keep_rgb: retain decoded arrays in results (for benchmarking/tests).
-      device: "cuda" (default; must exist), "cuda:N" or "cpu" (the kernels'
-        plain PyTorch versions).
+      device: "cuda" (default: every local card; a card must exist),
+        "cuda:N", "cpu" (the kernels' plain PyTorch versions) or a list of
+        devices, which may repeat one.  With n devices every batch is
+        aligned to n x lane_tile MCUs and split into n contiguous shards,
+        one a device.  ``num_devices`` (config or
+        ``PIM_JPEG_TPU_NUM_DEVICES``) keeps the first n of them.
     """
 
     def __init__(self, budget_mcus: Optional[int] = None,
@@ -185,10 +206,6 @@ class DecodeEngine:
             budget_mcus=budget_mcus, lane_tile=lane_tile,
             prepare_threads=prepare_threads)
         cfg.validate()
-        if cfg.num_devices not in (None, 1):
-            raise NotImplementedError(
-                "multi-GPU decode is not ported yet (ROADMAP.md Queue 1, "
-                "item 11); one engine drives one device")
         self.config = cfg
         self.budget_mcus = cfg.budget_mcus
         self.lane_tile = cfg.lane_tile
@@ -199,13 +216,17 @@ class DecodeEngine:
         self.wire = cfg.wire
         self.scale = cfg.scale
         self.keep_rgb = keep_rgb
-        self.device = resolve_device(device)
-        self._h2d_stream = None
-        if self.device.type == "cuda":
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-            self._h2d_stream = torch.cuda.Stream(self.device)
+        if (not isinstance(device, (list, tuple))
+                and torch.device(device) == torch.device("cuda")):
+            self.devices = make_mesh(cfg.num_devices)   # every local card
+        else:
+            self.devices = devices_of(device, cfg.num_devices)
+        self.device = self.devices[0]
+        # Every batch (bucketed partial ones included) splits into whole
+        # lane tiles per device.
+        self.batch_align = len(self.devices) * self.lane_tile
+        self.budget_mcus = (-(-self.budget_mcus // self.batch_align)
+                            * self.batch_align)
 
     # -- pipeline stages ------------------------------------------------------
 
@@ -222,21 +243,19 @@ class DecodeEngine:
             return PreparedImage(name, header, coeffs, uid=uid)
 
     def _stage_batch(self, batch: Batch, timers: StageTimers) -> Batch:
-        """Start the H2D copy (producer side) so it overlaps the consumer's
-        kernel and D2H of earlier batches."""
+        """Start the H2D copies (producer side) so they overlap the
+        consumer's kernels and D2H of earlier batches: a shard a device
+        when the batch's M is a multiple of devices x lane_tile, else the
+        whole batch on the first device (as the JAX engine does)."""
         if self.wire == "auto":
             batch.coeffs = compact_wire(batch.coeffs)
-        arrays = (batch.coeffs, batch.qidx, batch.qpool.astype(np.int32))
+        devices = (self.devices if batch.coeffs.shape[0] % self.batch_align
+                   == 0 else self.devices[:1])
         with timers.stage("h2d"):
-            if self._h2d_stream is None:
-                batch.coeffs, batch.qidx, batch.qpool = (
-                    torch.from_numpy(a) for a in arrays)
-                return batch
-            with torch.cuda.stream(self._h2d_stream):
-                batch.coeffs, batch.qidx, batch.qpool = (
-                    torch.from_numpy(a).pin_memory().to(
-                        self.device, non_blocking=True) for a in arrays)
-                batch.ready = self._h2d_stream.record_event()
+            batch.placed = place_for_mesh(batch.coeffs, batch.qidx,
+                                          batch.qpool, devices,
+                                          self.lane_tile)
+        batch.coeffs = batch.qidx = batch.qpool = None
         return batch
 
     def _dedicated_budget(self, num_mcus: int) -> int:
@@ -286,7 +305,7 @@ class DecodeEngine:
                     band_target=(acc, r0 * px_h // s, c0 * px_w // s))
                 router = ModeRouter(self._dedicated_budget(
                     tile_header.num_mcus), max_images=1,
-                    align=self.lane_tile)
+                    align=self.batch_align)
                 router.add(tile)
                 yield from router.flush_all()
 
@@ -302,34 +321,25 @@ class DecodeEngine:
 
     def _launch_key(self, batch: Batch) -> tuple:
         """The launch geometry for the device-phase profile, from the
-        staged tensors: the JAX engine's key with one device."""
-        wire = "i8" if batch.coeffs.dtype == torch.int8 else "i16"
+        staged shards: the JAX engine's key, with the per-shard MCU count
+        (the geometry each card runs)."""
+        coeffs, _, qpool = batch.placed.shards[0]
+        wire = "i8" if coeffs.dtype == torch.int8 else "i16"
         return ((batch.mode.h, batch.mode.v, batch.mode.ncomp),
-                int(batch.coeffs.shape[0]), self.lane_tile, batch.transport,
-                self.scale, wire, int(batch.qpool.shape[0]))
+                batch.placed.shard_mcus, self.lane_tile, batch.transport,
+                self.scale, wire, int(qpool.shape[0]))
 
     def _dispatch_batch(self, batch: Batch, timers: StageTimers):
-        """Launch the kernel and start the D2H copy; returns
-        ``(host_output, done_event)`` (the event is None on the CPU)."""
+        """Launch every shard's kernel and start each shard's D2H copy into
+        a pinned buffer of its own; returns ``(host_buffers, events)``
+        (an event is None for a CPU shard)."""
         ycbcr = self._use_ycbcr(batch.mode)
         batch.transport = "ycbcr" if ycbcr else "rgb"
-        inputs = (batch.coeffs, batch.qidx, batch.qpool)
         with timers.stage("kernel"):
-            if self._h2d_stream is None:
-                out = decode_mcus(*inputs, batch.mode, raw=not ycbcr,
-                                  ycbcr=ycbcr, scale=self.scale)
-                return out.numpy(), None
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(batch.ready)
-            for t in inputs:
-                # Allocated on the H2D stream, used on this one: keep the
-                # caching allocator from reusing them too early.
-                t.record_stream(stream)
-            out = decode_mcus(*inputs, batch.mode, raw=not ycbcr,
-                              ycbcr=ycbcr, scale=self.scale)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            return host, stream.record_event()
+            outs = decode_mcus_sharded(batch.placed, None, None, batch.mode,
+                                       raw=not ycbcr, ycbcr=ycbcr,
+                                       scale=self.scale)
+            return to_host(outs)
 
     def _finish_batch(self, batch: Batch, host_out, done,
                       timers: StageTimers, write: bool,
@@ -337,17 +347,21 @@ class DecodeEngine:
                       finish_pool=None) -> None:
         ycbcr = batch.transport == "ycbcr"
         with timers.stage("d2h"):
-            # [g, 64, alloc] YCbCr planes or [3, luma_slots, nn, alloc] RGB
-            if done is not None:
-                done.synchronize()
-                host_out = host_out.numpy()
-            raw = host_out
+            # Per shard: [g, 64, M/n] YCbCr planes or [3, luma_slots, nn,
+            # M/n] RGB.
+            for event in done:
+                if event is not None:
+                    event.synchronize()
+            shards = [h.numpy() for h in host_out]
 
         def finish_safe(img, off) -> None:
             # Per-image isolation: an assembly/write failure must not
             # poison the other images of the batch.
             try:
-                self._finish_image(img, off, raw, ycbcr, write, results)
+                # The shard holding the image, or a copy of just its MCUs
+                # where it straddles two shards.
+                raw, local = mcu_window(shards, off, img.header.num_mcus)
+                self._finish_image(img, local, raw, ycbcr, write, results)
             except Exception as e:
                 logger.error("finishing %s failed: %s", img.name, e)
                 _fail(results, [(img, off)], f"output failed: {e}")
@@ -438,8 +452,9 @@ class DecodeEngine:
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             report = self._decode_named_blobs(items, write)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in set(self.devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             trace_dir, f"pjt_trace_{os.getpid()}_{time.time_ns()}.json"))
@@ -453,9 +468,11 @@ class DecodeEngine:
         dispatch_times: Dict[tuple, list] = {}
         batch_q: "queue.Queue[Optional[Batch]]" = queue.Queue(maxsize=4)
         router = ModeRouter(self.budget_mcus, max_images=self.max_images,
-                            align=self.lane_tile)
+                            align=self.batch_align)
+        one_device_batches = 0
 
         def consumer() -> None:
+            nonlocal one_device_batches
             pending = collections.deque()  # depth-2 device pipeline
             finish_pool = (ThreadPoolExecutor(self.prepare_threads,
                                               thread_name_prefix="pjt-fin")
@@ -482,6 +499,8 @@ class DecodeEngine:
                     # Only launches that went out count, on this thread.
                     key = self._launch_key(batch)
                     launch_stats[key] = launch_stats.get(key, 0) + 1
+                    if len(batch.placed.devices) < len(self.devices):
+                        one_device_batches += 1
                     dispatch_times.setdefault(key, []).append(
                         time.monotonic() - t_disp)
                     pending.append((batch, host_out, done))
@@ -541,7 +560,7 @@ class DecodeEngine:
                         stage_safe(self._split_bands(prepared))
                     elif num_mcus > self.budget_mcus:
                         big = ModeRouter(self._dedicated_budget(num_mcus),
-                                         max_images=1, align=self.lane_tile)
+                                         max_images=1, align=self.batch_align)
                         big.add(prepared)
                         stage_safe(big.flush_all())
                     else:
@@ -554,7 +573,7 @@ class DecodeEngine:
         ordered = [results.get(i, FileResult(name, False, error="missing"))
                    for i, (name, _) in enumerate(items)]
         return EngineReport(ordered, timers, launch_stats, dispatch_times,
-                            self.device)
+                            self.device, self.devices, one_device_batches)
 
     def decode_paths(self, paths: Sequence[str], write: bool = True,
                      sort: bool = True) -> EngineReport:

@@ -1,1 +1,2 @@
-"""Measurement tools of the port, run on a CUDA card."""
+"""Measurement tools of the port: most run on a CUDA card; the two scaling
+harnesses also run on the CPU."""

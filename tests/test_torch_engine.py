@@ -221,8 +221,15 @@ def test_compact_wire_matches_jax():
 
 @pytest.mark.parametrize("cfg", [dict(num_devices=2)])
 def test_unported_options_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """More devices than the engine's device names is make_mesh's
+    ValueError (the JAX engine's for more chips than there are); a list of
+    two CPU devices drives both."""
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         DecodeEngine(config=EngineConfig(**cfg), device="cpu")
+    engine = DecodeEngine(config=EngineConfig(**cfg),
+                          device=["cpu", "cpu", "cpu"])
+    assert [d.type for d in engine.devices] == ["cpu", "cpu"]
+    assert engine.batch_align == 2 * engine.lane_tile
 
 
 @pytest.mark.parametrize("scale", [2, 4, 8])

@@ -351,11 +351,23 @@ def test_dtype_must_be_a_torch_float():
 
 
 def test_multi_device_request_raises():
-    for devices in (["cpu", "cpu"], ("cuda:0", "cuda:1")):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-            T.decode_same_size_batch(list(SAME), device=devices)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        T.decode_batch_crops(list(SAME), BOXES[1], CROP, device=["cpu"] * 2)
+    """A device list decodes one group of whole images a device and equals
+    the one-device result; a list naming a card this machine lacks, or no
+    device at all, raises (nothing falls back)."""
+    for devices in (["cpu", "cpu"], ("cpu",) * 4):
+        got, _ = T.decode_same_size_batch(list(SAME), device=devices)
+        want, _ = T.decode_same_size_batch(list(SAME), device="cpu")
+        assert got.device.type == "cpu" and torch.equal(got, want)
+        got, _ = T.decode_batch_crops(list(SAME), BOXES[1], CROP,
+                                      device=devices)
+        want, _ = T.decode_batch_crops(list(SAME), BOXES[1], CROP,
+                                       device="cpu")
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="empty device list"):
+        T.decode_same_size_batch(list(SAME), device=[])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            T.decode_same_size_batch(list(SAME), device=("cpu", "cuda:0"))
 
 
 def test_cuda_without_a_card_raises():

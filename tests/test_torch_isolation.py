@@ -53,6 +53,7 @@ def test_port_decodes_without_loading_jax(tmp_path):
         data = encode_jpeg(img, sampling="4:2:0")
         rgb = port.decode_bytes(data, device="cpu")
         assert rgb.shape == (40, 48, 3)
+        assert (port.decode_bytes(data, device=["cpu"] * 3) == rgb).all()
         assert port.decode_scaled(data, 2, device="cpu").shape == (20, 24, 3)
         assert port.decode_region(data, 1, 2, 8, 9,
                                   device="cpu").shape == (8, 9, 3)
@@ -262,7 +263,9 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
         pytest.skip("a CUDA card is present; this checks the CPU-only case")
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
     for cwd in (REPO, str(tmp_path)):
-        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
-                              capture_output=True, text=True, timeout=300)
-        assert proc.returncode != 0
-        assert '"ok": true' not in proc.stdout
+        for args in ([], ["--cards"]):
+            proc = subprocess.run([sys.executable, "chip_smoke.py", *args],
+                                  cwd=cwd, capture_output=True, text=True,
+                                  timeout=300)
+            assert proc.returncode != 0
+            assert '"ok": true' not in proc.stdout
