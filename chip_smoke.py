@@ -66,6 +66,15 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    every shard launching), with the engine's MP/s and the batch path's
    images/s against one device, the host concatenation of two shards
    against their D2H, and two gloo ranks of ``tools.scaling_bench``; the
+   port's differential fuzz campaign (``[3 fuzz]``: ``tools.fuzz.run`` in
+   this process on the card, seed ``FUZZ_SEED``, ``FUZZ_ITERATIONS``
+   iterations of random engine geometries, batch, stream, device-list,
+   crop and table checks: no mismatch, every check drawn, the decode
+   kernels and the epilogue launched); the host-decode tools on this
+   machine's host (``[3 host]``: ``tools.entropy_bench``, with ``--prog``
+   and ``tools.prog_profile`` where PIL imports, a null ``tools.src_ab``
+   within ``NULL_AB_LIMIT``, ``tools.asan_drive`` under ASan and UBSan,
+   ``tools.pgo_ab``); the
    experiment tool ``tools.kernel_opt`` (every variant bit-exact, each of
    its three kernels launched); the tools ``tools.mxu_idct_ab`` (the
    butterfly and the three tensor-core variants, each within its
@@ -1665,6 +1674,147 @@ def phase_multi(torch, dev, devices, card: str, root: str, tmp: str, paths,
           flush=True)
 
 
+# --- phases [3 fuzz] and [3 host] ---------------------------------------------
+
+# The card's fuzz campaign: every check of the tool is drawn with this seed
+# and count (the draws do not depend on the device or on PIL).
+FUZZ_SEED = 20261017
+FUZZ_ITERATIONS = 1000
+FUZZ_KERNELS = ("rgb", "ycbcr", "rgb_scaled", "raster")
+ENTROPY_REPS = 5
+SRC_AB_REPS = 15
+# A null A/B (the port's entropy.cpp against itself) that reads further
+# from 1 than this: interleaved timing cannot resolve a host change here.
+NULL_AB_LIMIT = 0.10
+SANITIZER_ITERS = 40
+PGO_REPS = 5
+
+
+def phase_fuzz(dev) -> None:
+    """``tools.fuzz.run`` in this process on the card (the tool sets the
+    launch counts to 0 at its start and reads them at its end): no
+    mismatch, valid inputs decoded, every check drawn, and the decode
+    kernels and the raster epilogue launched, no plain version on the
+    card."""
+    from pim_jpeg_decoder_tpu_torch.tools import fuzz
+
+    stats = fuzz.run(FUZZ_ITERATIONS, FUZZ_SEED, device=dev)
+    print(f"[3 fuzz] {json.dumps(stats)}", flush=True)
+    launches = stats["launches"]
+    problems = []
+    if not stats["ok"]:
+        problems.append(f"{stats['mismatch']} mismatches, first "
+                        f"{stats['failures'][:5]}")
+    if stats["valid"] < 1:
+        problems.append("no valid input decoded")
+    undrawn = [k for k in fuzz.TRIAL_COUNTERS if stats[k] < 1]
+    if undrawn:
+        problems.append(f"checks never drawn: {undrawn}")
+    idle = [k for k in FUZZ_KERNELS if launches[k] < 1]
+    if idle or launches["plain_on_cuda"]:
+        problems.append(f"kernels not launched: {idle}, plain versions on "
+                        f"the card: {launches['plain_on_cuda']}")
+    if problems:
+        fail("[3 fuzz] " + "; ".join(problems))
+    print(f"[3 fuzz] tools.fuzz seed {FUZZ_SEED}, {FUZZ_ITERATIONS} "
+          f"iterations on {stats['device']}: 0 mismatches in "
+          f"{stats['seconds']} s; valid {stats['valid']}, corrupt inputs "
+          f"{stats['corrupt_ok']} refused and {stats['corrupt_decoded']} "
+          f"decoded; " + ", ".join(f"{k} {stats[k]}"
+                                   for k in fuzz.TRIAL_COUNTERS)
+          + "; launches " + " ".join(f"{k}={launches[k]}"
+                                     for k in FUZZ_KERNELS), flush=True)
+
+
+def phase_host(root: str) -> None:
+    """The host-decode tools over the port's ``entropy.cpp`` on this
+    machine's host (no card): the entropy-decode rate of the port's host
+    corpus (and, where PIL imports, of its progressive re-encodes, with
+    ``tools.prog_profile``'s chain bound), a null ``src_ab`` (the source
+    against itself: its correctness gate, and variant/base within
+    ``NULL_AB_LIMIT``), the ASan and UBSan drives, each in its own
+    process (the drive re-executes itself with the sanitizer runtime
+    preloaded), and ``tools.pgo_ab`` (its profile trained and used; the
+    ratio is printed, not held)."""
+    import io
+
+    from pim_jpeg_decoder_tpu_torch.tools import (entropy_bench, pgo_ab,
+                                                  prog_profile, src_ab)
+    from pim_jpeg_decoder_tpu_torch.tools.host_corpus import pil_image
+
+    t0 = time.monotonic()
+    image = pil_image()
+    prog = image is not None
+    print(f"[3 host] PIL {image.__version__ if prog else 'not installed'} "
+          f"on this machine", flush=True)
+    r = entropy_bench.run(reps=ENTROPY_REPS, prog=prog)
+    corpus = (f"{r['images']} images, {r['mp_per_pass']:.1f} MP a pass, "
+              f"one thread, host_cores={r['host_cores']}")
+    for key in ("host_entropy_mps", "host_progressive_mps",
+                "host_progressive_chains_mps"):
+        if key in r:
+            band = r[key]
+            print(f"[3 host] tools.entropy_bench: {key} median="
+                  f"{band['median']:.1f} min={band['min']:.1f} max="
+                  f"{band['max']:.1f} MP/s over {r['reps']} reps ({corpus})",
+                  flush=True)
+            corpus = "the first 12 images as SOF2"
+    if prog:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = prog_profile.main([str(ENTROPY_REPS)])
+        lines = out.getvalue().splitlines()
+        if rc != 0:
+            fail(f"[3 host] tools.prog_profile exited {rc}")
+        for ln in lines[:2] + [ln for ln in lines if "bound" in ln
+                               or "overhead:" in ln]:
+            print(f"[3 host] tools.prog_profile {ENTROPY_REPS}: {ln}",
+                  flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ab = src_ab.run(src_ab.SRC, reps=SRC_AB_REPS)
+    base, var = sorted(ab["base"]), sorted(ab["variant"])
+    print(f"[3 host] tools.src_ab (entropy.cpp against itself, "
+          f"{SRC_AB_REPS} interleaved reps): {out.getvalue().splitlines()[-1]}"
+          f"; base median {statistics.median(base):.1f} MP/s (min "
+          f"{base[0]:.1f}, max {base[-1]:.1f}), variant median "
+          f"{statistics.median(var):.1f} (min {var[0]:.1f}, max "
+          f"{var[-1]:.1f}), variant/base {ab['ratio']:.4f}", flush=True)
+    if abs(ab["ratio"] - 1) > NULL_AB_LIMIT:
+        fail(f"[3 host] null src_ab reads {ab['ratio']:.4f}, outside "
+             f"1 +- {NULL_AB_LIMIT}")
+    for flags in ([], ["--ubsan"]):
+        cmd = [sys.executable, "-m",
+               "pim_jpeg_decoder_tpu_torch.tools.asan_drive", "0",
+               str(SANITIZER_ITERS), *flags]
+        t1 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=900,
+                              env=dict(os.environ, PYTHONPATH=root))
+        last = proc.stdout.strip().splitlines()[-1:] or [""]
+        if proc.returncode != 0 or not last[0].endswith(" decodes"):
+            fail(f"[3 host] tools.asan_drive {' '.join(cmd[3:])} exited "
+                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        print(f"[3 host] tools.asan_drive {' '.join(cmd[3:])}: {last[0]} "
+              f"in {time.monotonic() - t1:.1f} s", flush=True)
+    out = io.StringIO()
+    t1 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = pgo_ab.main([str(PGO_REPS)])
+    lines = out.getvalue().splitlines()
+    if rc != 0:
+        fail(f"[3 host] tools.pgo_ab exited {rc}: {lines[-3:]}")
+    for ln in [ln for ln in lines if ln.startswith("profile:")] + lines[-3:]:
+        print(f"[3 host] tools.pgo_ab {PGO_REPS}: {ln}", flush=True)
+    print(f"[3 host] tools.pgo_ab in {time.monotonic() - t1:.1f} s (three "
+          f"g++ builds and a training process)", flush=True)
+    if not prog:
+        print("[3 host] not run here: tools.entropy_bench --prog and "
+              "tools.prog_profile (the progressive corpus needs PIL, which "
+              "this machine does not have)", flush=True)
+    print(f"[3 host] phase wall {time.monotonic() - t0:.1f} s", flush=True)
+
+
 def phase_tool():
     """``python -m pim_jpeg_decoder_tpu_torch.tools.kernel_opt`` in this
     process, with the launch counts set to 0 just before it and read just
@@ -2805,6 +2955,8 @@ def main(argv=None) -> int:
                     [blobs[p] for p in imagenet],
                     {1: [oracles[p] for p in imagenet],
                      2: [scaled_oracles[p] for p in imagenet]}, crop_set)
+        phase_fuzz(dev)
+        phase_host(root)
         record, tool_counts = phase_tool()
         counts.update({k: tool_counts[k] for k in KERNEL_OPT_COUNTERS})
         counts.update(phase_ab_tools())

@@ -9,6 +9,7 @@ here).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,21 +39,27 @@ _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
-def _cache_dir() -> str:
-    # The port's own directory (under $PIM_JPEG_TPU_CACHE when that is
-    # set), so it never loads a library built from another package's copy.
-    base = os.path.join(os.environ.get("PIM_JPEG_TPU_CACHE",
-                                       tempfile.gettempdir()),
+def _cache_dir(root: Optional[str] = None) -> str:
+    # The port's own directory (under ``root``, else $PIM_JPEG_TPU_CACHE
+    # when that is set), so it never loads a library built from another
+    # package's copy.
+    base = os.path.join(root or os.environ.get("PIM_JPEG_TPU_CACHE",
+                                               tempfile.gettempdir()),
                         "pim_jpeg_tpu_torch")
     os.makedirs(base, exist_ok=True)
     return base
 
 
-def _build() -> str:
+def library_path(cache_root: Optional[str] = None) -> str:
+    """Where the library of the current ``entropy.cpp`` is built and loaded
+    from: ``entropy_<source sha256[:16]>.so`` in :func:`_cache_dir`."""
     with open(_SRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    path = os.path.join(_cache_dir(), f"entropy_{tag}.so")
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_cache_dir(cache_root), f"entropy_{tag}.so")
+
+
+def _build() -> str:
+    path = library_path()
     if not os.path.exists(path):
         tmp = path + f".tmp{os.getpid()}"
         cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
@@ -60,6 +67,25 @@ def _build() -> str:
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, path)
     return path
+
+
+_INT32_ENTRY_POINTS = (
+    "pjt_decode_scan", "pjt_decode_segments", "pjt_decode_progressive_scan",
+    "pjt_decode_progressive_image", "pjt_progressive_assemble",
+    "pjt_ycbcr_to_rgb", "pjt_ycbcr_to_bmp_rows", "pjt_destuff",
+    "pjt_compact_wire", "pjt_bmp_rows", "pjt_raster_rgb", "pjt_abi_version")
+
+
+def open_library(path: str) -> ctypes.CDLL:
+    """Load a build of ``entropy.cpp`` (this module's, or a tool's: a
+    variant, a profile-guided or a sanitized build), set its entry points'
+    return types and check its ABI version."""
+    lib = ctypes.CDLL(path)
+    for name in _INT32_ENTRY_POINTS:
+        getattr(lib, name).restype = ctypes.c_int32
+    if lib.pjt_abi_version() != 13:
+        raise RuntimeError(f"native ABI mismatch in {path}")
+    return lib
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -71,26 +97,27 @@ def load() -> Optional[ctypes.CDLL]:
         if _load_failed:
             return None
         try:
-            lib = ctypes.CDLL(_build())
-            lib.pjt_decode_scan.restype = ctypes.c_int32
-            lib.pjt_decode_segments.restype = ctypes.c_int32
-            lib.pjt_decode_progressive_scan.restype = ctypes.c_int32
-            lib.pjt_decode_progressive_image.restype = ctypes.c_int32
-            lib.pjt_progressive_assemble.restype = ctypes.c_int32
-            lib.pjt_ycbcr_to_rgb.restype = ctypes.c_int32
-            lib.pjt_ycbcr_to_bmp_rows.restype = ctypes.c_int32
-            lib.pjt_destuff.restype = ctypes.c_int32
-            lib.pjt_compact_wire.restype = ctypes.c_int32
-            lib.pjt_bmp_rows.restype = ctypes.c_int32
-            lib.pjt_raster_rgb.restype = ctypes.c_int32
-            lib.pjt_abi_version.restype = ctypes.c_int32
-            if lib.pjt_abi_version() != 13:
-                raise RuntimeError("native ABI mismatch")
-            _lib = lib
+            _lib = open_library(_build())
         except Exception:
             _load_failed = True
             return None
         return _lib
+
+
+@contextlib.contextmanager
+def use_library(lib: ctypes.CDLL):
+    """Route every native call of this module through ``lib`` (from
+    :func:`open_library`) inside the block; the library loaded before it
+    (or none) is restored after."""
+    global _lib, _load_failed
+    with _lock:
+        saved = _lib, _load_failed
+        _lib, _load_failed = lib, False
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib, _load_failed = saved
 
 
 def _vp(arr: np.ndarray) -> ctypes.c_void_p:

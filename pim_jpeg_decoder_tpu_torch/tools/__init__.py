@@ -1,2 +1,4 @@
-"""Measurement tools of the port: most run on a CUDA card; the two scaling
-harnesses also run on the CPU."""
+"""Measurement and checking tools of the port: the kernel tools run on a
+CUDA card; the two scaling harnesses and the fuzz campaign also run on the
+CPU; the host-decode tools (entropy_bench, prog_profile, src_ab, pgo_ab,
+asan_drive, over host_corpus) need only g++."""

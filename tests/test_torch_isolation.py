@@ -48,6 +48,13 @@ def test_port_decodes_without_loading_jax(tmp_path):
         from pim_jpeg_decoder_tpu_torch.ops.specs import mode_for
         assert len([m for m in sys.modules
                     if m.startswith("pim_jpeg_decoder_tpu_torch.")]) > 40
+        # The fuzz and host tools import without side effects: no corpus
+        # built, no sanitizer re-exec (this process goes on).
+        from pim_jpeg_decoder_tpu_torch.tools import host_corpus
+        for name in ("fuzz", "entropy_bench", "prog_profile", "src_ab",
+                     "pgo_ab", "asan_drive"):
+            assert "pim_jpeg_decoder_tpu_torch.tools." + name in sys.modules
+        assert host_corpus.make_corpus.cache_info().currsize == 0
         img = np.random.default_rng(0).integers(0, 256, (40, 48, 3),
                                                  dtype=np.uint8)
         data = encode_jpeg(img, sampling="4:2:0")
@@ -104,11 +111,17 @@ def test_port_decodes_without_loading_jax(tmp_path):
 
 
 # An import of the JAX package or of any module under it (never of
-# ``pim_jpeg_decoder_tpu_torch``, which starts with the same name).
+# ``pim_jpeg_decoder_tpu_torch``, which starts with the same name), of the
+# repo's ``tests`` package (its helpers import the JAX package), or a module
+# loaded by file path from the JAX package or the repo's ``tools/`` (only
+# tests may load the JAX tools).
 JAX_PACKAGE_IMPORT = re.compile(
-    r"^\s*(from\s+pim_jpeg_decoder_tpu(?!\w)"
-    r"|import\s+[^#\n]*\bpim_jpeg_decoder_tpu(?!\w))"
-    r"|(import_module|__import__)\(\s*['\"]pim_jpeg_decoder_tpu(?!\w)", re.M)
+    r"^\s*(from\s+(pim_jpeg_decoder_tpu|tests)(?!\w)"
+    r"|import\s+[^#\n]*\b(pim_jpeg_decoder_tpu|tests)(?!\w))"
+    r"|(import_module|__import__)\(\s*['\"](pim_jpeg_decoder_tpu|tests)(?!\w)"
+    r"|spec_from_file_location\([^)]*?"
+    r"(pim_jpeg_decoder_tpu(?!_torch)|(?<!pim_jpeg_decoder_tpu_torch)"
+    r"(?<!pim_jpeg_decoder_tpu_torch[/'\"], )['\"/]tools\b)", re.M)
 
 
 def _port_sources():
@@ -146,6 +159,23 @@ def test_no_jax_package_import_in_port_sources():
     ("from pim_jpeg_decoder_tpu_torch.ops import specs as S", False),
     ("import pim_jpeg_decoder_tpu_torch.cli", False),
     ("    Counterpart of ``pim_jpeg_decoder_tpu/ops/specs.py``", False),
+    ("from tests.test_native import TestRandomTableDifferential as T", True),
+    ("    from tests import helpers", True),
+    ("import tests.test_native", True),
+    ("import_module('tests.test_native')", True),
+    ("spec = importlib.util.spec_from_file_location(\n"
+     "    'fuzz', os.path.join(REPO, 'tools', 'fuzz.py'))", True),
+    ("spec_from_file_location('fuzz', REPO + '/tools/fuzz.py')", True),
+    ("spec_from_file_location('x', os.path.join(REPO, "
+     "'pim_jpeg_decoder_tpu', 'cli.py'))", True),
+    ("spec_from_file_location('x', 'pim_jpeg_decoder_tpu/tools.py')", True),
+    ("from tests_of_mine import x", False),
+    ("import pytests", False),
+    ("    Counterpart of the JAX package's ``tools/fuzz.py``", False),
+    ("spec_from_file_location('x', os.path.join(ROOT, "
+     "'pim_jpeg_decoder_tpu_torch', 'tools', 'fuzz.py'))", False),
+    ("spec_from_file_location('x', 'pim_jpeg_decoder_tpu_torch/tools/x.py')",
+     False),
 ])
 def test_jax_package_import_pattern(line, hit):
     """The static scan tells the JAX package from the port by the full
