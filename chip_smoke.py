@@ -34,7 +34,10 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    (``mxu_edge_cases``: mxu2pass at 1, 7, 8, 9 and 17 blocks, mxu64 at 1,
    15, 16, 17, 63, 64 and 65, each with a last CUDA block holding a
    ragged and idle warps, a ``deq[5:]`` slice, M=196,608);
-   the VLC kernel (``csrc/vlc.cu``) at five seeds, tolerance 0; the tile
+   the VLC kernel (``csrc/vlc.cu``) on the tool's bitstream with five
+   tables (``vlc_tables``: the tool's, all-zero, zero-advance entries,
+   mostly 1-bit, long codes) at five seeds, tolerance 0, and no chunk exit
+   off the next chunk's entry offsets (the kernel's counter); the tile
    kernels (RGB, YCbCr, scaled RGB at scale 2/4/8, and in the colour modes
    the stacked and truerez kernels, also equal to the RGB kernel, and the
    memory floor) in every
@@ -87,7 +90,8 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    bytes over 3.35 TB/s and its operations over their peak rate) and, for
    the tensor-core IDCT, ``torch.matmul`` yardsticks with TF32 allowed;
    the IDCT A/B (butterfly, mxu2pass, mxu2pass4, mxu64) at the tool's
-   geometry and the VLC kernel; the ``tools/stage_profile`` record
+   geometry and the VLC kernel beside a 4-byte ``fill_`` launch (the
+   card's floor for any launch); the ``tools/stage_profile`` record
    (staged sum, fused time, fusion ratio), the ``tools.kernel_opt`` record
    and rgb_kernel's GB/s as a share of the floor's (``memfloor_kernel``:
    the tiled decode kernels' pattern, a 32-MCU tile copied into shared
@@ -218,12 +222,13 @@ INT32_OPS = FP32_FLOPS / 2
 IDCT_BLOCK_OPS = 16 * 56 + 2 * 64
 DEQUANT_BLOCK_OPS = 3 * 64
 COLOR_PIXEL_OPS = 21
-# The VLC loop's dependency chain a symbol: two dependent shared-memory
-# loads (the window words, then the table entry) and at least 6 dependent
-# integer operations (window funnel, probe, entry fields, advance, word
-# index and address), at assumed latencies (not measured: shared load 23
-# cycles, integer operation 4), over the card's maximum SM clock.
-VLC_CYCLES_PER_SYMBOL = 2 * 23 + 6 * 4
+# Integer operations one VLC symbol needs at least: the window 2 (word
+# index; one funnel shift of the two words, which takes the shift mod 32 and
+# gives the first word at shift 0), the probe 1 (top 8 bits), the entry's
+# fields 2 (advance, value) once the table is folded to advance | value << 8
+# (256 entries once, against 8,639 symbols), the sums 3 (acc, position,
+# nsym), the loop's test 1.  The loads are the bytes' share.
+VLC_SYMBOL_OPS = 9
 
 
 def reduced_pass_ops(n: int) -> int:
@@ -683,26 +688,59 @@ def mxu_edge_cases(torch, dev, rng, max_err) -> str:
     return "; ".join(notes)
 
 
+def vlc_tables(lut: np.ndarray) -> dict:
+    """Name -> table of the VLC cases: the tool's, the all-zero one (every
+    entry a fixed point), the tool's with 6 zero-advance entries, one of
+    mostly 1-bit advances, one of codes 1-15 and value bits 0-15."""
+    rng = np.random.default_rng(SEED)
+
+    def table(code, vbits):
+        return (code | vbits << 4
+                | rng.integers(0, 256, lut.size) << 8).astype(np.int32)
+
+    zero_advance = lut.copy()
+    zero_advance[rng.choice(lut.size, 6, replace=False)] &= ~0xFF
+    ones = rng.random(lut.size) < 0.9
+    return {"tool": lut, "all_zero": np.zeros_like(lut),
+            "zero_advance": zero_advance,
+            "one_bit": table(np.where(ones, 1, rng.integers(1, 16, lut.size)),
+                             np.where(ones, 0, rng.integers(0, 16, lut.size))),
+            "long_codes": table(rng.integers(1, 16, lut.size),
+                                rng.integers(0, 16, lut.size))}
+
+
 def vlc_cases(torch, dev, max_err) -> str:
     """The VLC kernel against its plain version on the card: the tool's
-    bitstream and table at five seeds, [acc, nsym, bitpos] identical."""
-    from pim_jpeg_decoder_tpu_torch.ops.vlc import vlc, vlc_reference
+    bitstream with each table of ``vlc_tables`` at five seeds, [acc, nsym,
+    bitpos] identical; no chunk exit off the next chunk's entry offsets."""
+    from pim_jpeg_decoder_tpu_torch.ops.vlc import (exit_violations, vlc,
+                                                    vlc_reference)
     from pim_jpeg_decoder_tpu_torch.tools.vlc_bench import make_inputs
 
-    data, lut = (torch.from_numpy(a).to(dev) for a in make_inputs())
-    outs = []
-    for seed in range(5):
-        s = torch.tensor([seed], dtype=torch.int32, device=dev)
-        got, want = vlc(s, data, lut), vlc_reference(s, data, lut)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err["vlc"] = max(max_err["vlc"], err)
-        if err:
-            fail(f"vlc kernel {got.tolist()} != plain version "
-                 f"{want.tolist()} at seed {seed}")
-        outs.append(got.tolist())
-    return (f"vlc kernel == plain version at seeds 0-4 (tolerance 0): "
-            f"[acc, nsym, bitpos] {outs}")
+    data, lut = make_inputs()
+    d_data = torch.from_numpy(data).to(dev)
+    before = exit_violations(dev)
+    outs = {}
+    for name, table in vlc_tables(lut).items():
+        d_lut = torch.from_numpy(table).to(dev)
+        for seed in range(5):
+            s = torch.tensor([seed], dtype=torch.int32, device=dev)
+            got, want = vlc(s, d_data, d_lut), vlc_reference(s, d_data, d_lut)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err["vlc"] = max(max_err["vlc"], err)
+            if err:
+                fail(f"vlc kernel {got.tolist()} != plain version "
+                     f"{want.tolist()} at seed {seed}, table {name}")
+            outs.setdefault(name, []).append(got.tolist())
+    violations = exit_violations(dev) - before
+    if violations:
+        fail(f"vlc kernel: {violations} chunk exits off the next chunk's "
+             f"entry offsets")
+    return (f"vlc kernel == plain version on 5 tables x seeds 0-4 "
+            f"(tolerance 0), 0 chunk exits off the entry offsets: [acc, "
+            f"nsym, bitpos] "
+            + "; ".join(f"{n} {o[:2]}" for n, o in outs.items()))
 
 
 def stage_cases(torch, mode, x, qi, qp, max_err, what: str) -> int:
@@ -2752,17 +2790,25 @@ def phase_ab_times(torch, dev, card: str, times: dict) -> None:
              for i in range(8)]
     _, nsym, bits = vlc_reference(seeds[0].cpu(), data.cpu(),
                                   lut.cpu()).tolist()
+    fills = [torch.empty(1, dtype=torch.int32, device=dev) for _ in seeds]
     k = time_band(lambda s: vlc(s, data, lut), seeds)
+    fill = time_band(lambda f: f.fill_(0), fills)
     p = time_band(lambda s: vlc_reference(s, data, lut), seeds, runs=5)
-    clock = max_sm_clock_hz()
-    b = (nsym * VLC_CYCLES_PER_SYMBOL / clock * 1e3, "operations")
+    # Each input read once (seed, stream, table), the output written once.
+    nbytes = 4 * (1 + vlc_bench.NWORDS + vlc_bench.LUT_SIZE + 3)
+    b = bound(nbytes, nsym * VLC_SYMBOL_OPS)
     times["vlc"] = timing(k, p, b)
     print(f"[4 times] vlc kernel, {vlc_bench.NWORDS} words, {nsym} symbols, "
           f"{bits} bits: {us_band(k)}/launch ({nsym / k[0] / 1e3:.2f} "
-          f"Msymbols/s, {k[0] * 1e6 / nsym:.2f} ns a symbol; bound "
-          f"{b[0] * 1e3:.2f} us: {VLC_CYCLES_PER_SYMBOL} dependent cycles a "
-          f"symbol at the {clock / 1e9:.3f} GHz maximum SM clock); plain "
-          f"Python loop {us_band(p)}; 30/5 launches | {card}", flush=True)
+          f"Msymbols/s, {k[0] * 1e6 / nsym:.3f} ns a symbol); bound "
+          f"{b[0] * 1e6:.3f} ns ({b[1]}: {nbytes} bytes over 3.35 TB/s "
+          f"{nbytes / HBM_BYTES_PER_S * 1e9:.3f} ns, {VLC_SYMBOL_OPS} "
+          f"integer operations a symbol over 33.5 T/s "
+          f"{nsym * VLC_SYMBOL_OPS / INT32_OPS * 1e9:.3f} ns), "
+          f"{100 * b[0] / k[0]:.4f}% of it; a 4-byte fill_ launch "
+          f"{us_band(fill)} (the card's floor for any launch), the kernel "
+          f"{k[0] / fill[0]:.2f}x it; plain Python loop {us_band(p)}; "
+          f"30/30/5 launches | {card}", flush=True)
 
 
 def redesign_times(torch, dev, card: str, times: dict) -> None:
@@ -2825,8 +2871,8 @@ def kernel_bounds(times: dict, card: str) -> None:
     """Each kernel's median time against its bound, and its share of it."""
     for name, t in times.items():
         print(f"[4 times] bound {JSON_NAMES.get(name, f'decode_{name}')}: "
-              f"{t['ms'] * 1e3:.2f} us vs {t['bound_ms'] * 1e3:.2f} us "
-              f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of "
+              f"{t['ms'] * 1e3:.2f} us vs {t['bound_ms'] * 1e3:.4g} us "
+              f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.3g}% of "
               f"the bound; library "
               + (f"{t['library_ms'] * 1e3:.2f} us" if t["library_ms"]
                  else "none") + f" | {card}", flush=True)

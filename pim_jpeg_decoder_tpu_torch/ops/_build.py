@@ -141,6 +141,7 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_mxu64,
                      [ptr, ptr, ptr, ctypes.c_int64, f32, ptr]),
                     (lib.pjt_cuda_vlc, [ptr] * 5),
+                    (lib.pjt_cuda_vlc_exit_violations, [ptr]),
                     (lib.pjt_cuda_decode_occupancy, [i32] * 7 + [ptr, ptr]),
                     (lib.pjt_cuda_stacked_occupancy, [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_truerez_occupancy, [i32] * 4 + [ptr, ptr]),

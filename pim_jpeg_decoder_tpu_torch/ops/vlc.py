@@ -1,4 +1,4 @@
-"""The serial variable-length-code symbol loop: one Huffman-like symbol per
+"""The variable-length-code symbol loop: one Huffman-like symbol per
 step, each step's advance known only after its table lookup.
 
 PyTorch counterpart of the kernel in the repository's
@@ -14,10 +14,15 @@ A table entry with no advance would loop forever in the JAX kernel; both
 versions here also stop after ``NBITS`` symbols, which no table with a
 non-zero advance reaches.
 
-:func:`vlc_reference` is the plain version (a Python loop: the work is one
-serial chain); CPU tensors take it, CUDA tensors the kernel of
-``csrc/vlc.cu`` (one thread; the call raises on failure, nothing falls
-back).
+:func:`vlc_reference` is the plain version (a Python loop: the function is
+one serial chain); CPU tensors take it, CUDA tensors the kernel of
+``csrc/vlc.cu`` (the call raises on failure, nothing falls back).  The
+kernel decodes the chain in parallel: ``[0, NBITS)`` cut into chunks of
+``CHUNK_BITS`` bits, each chunk decoded from each of its first
+``ENTRY_OFFSETS`` positions (a symbol advances at most 15 + 15 bits, so
+the path enters a chunk there) into a map, the maps composed
+across a cluster of ``CLUSTER_CTAS`` blocks.  The constants below are the
+kernel's.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import _launch, _plain_call
 NWORDS = 2048          # 8 KiB bitstream
 LUT_SIZE = 256
 NBITS = NWORDS * 32 - 64
+ENTRY_OFFSETS = 30     # an entry advances at most 15 code + 15 value bits
+CHUNK_BITS = 256
+CLUSTER_CTAS = 16      # blocks of the kernel's cluster; a warp a chunk
 
 
 def _check(seed: torch.Tensor, data: torch.Tensor, lut: torch.Tensor) -> None:
@@ -81,3 +89,19 @@ def vlc(seed: torch.Tensor, data: torch.Tensor,
             (seed.data_ptr(), data.data_ptr(), lut.data_ptr(),
              out.data_ptr()), out, f"{NWORDS} words")
     return out
+
+
+def exit_violations(device="cuda") -> int:
+    """Chunk exits of the kernel that landed on no entry offset of the next
+    chunk, summed over every launch on ``device`` in this process (0 unless
+    the kernel's chunk constants are wrong).  Waits for the device."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    count = ctypes.c_uint(0)
+    with torch.cuda.device(device):
+        rc = load().pjt_cuda_vlc_exit_violations(ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"reading the VLC kernel's exit count failed: "
+                           f"cudaError {rc}")
+    return count.value

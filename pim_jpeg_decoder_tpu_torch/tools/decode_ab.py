@@ -1,8 +1,8 @@
 """A/B of the full-scale decode kernels (``rgb_kernel``, ``ycbcr_kernel``),
 the raster epilogue, the dequantize, IDCT and colour stage kernels, the
 scaled decode kernel, the stacked and truerez experiment kernels, the
-tensor-core IDCT kernels and the memory floor between two checkouts, in one
-call on one card.
+tensor-core IDCT kernels, the memory floor and the VLC kernel between two
+checkouts, in one call on one card.
 
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent DIR
     python3 pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --root DIR
@@ -38,7 +38,10 @@ same geometry from the same runs; the tensor-core IDCT (``MXU_GEOMETRIES``:
 ``mxu2pass`` with pieces 1 and 2 and ``mxu64`` at 4:2:0, M=16,384, both
 ``mxu2pass`` forms at 196,608 and ``mxu64`` at 196,608, int16); the memory
 floor (``MEMFLOOR_GEOMETRIES``: 4:2:0 at M=16,384 on both wires and 196,608
-int16), whose lines also end with ``rgb_kernel``'s time.
+int16), whose lines also end with ``rgb_kernel``'s time; the VLC kernel
+(``VLC_GEOMETRY``: the tool's draw, ``tools/vlc_bench.make_inputs``, 2,048
+words, launches cycling over seeds 0-7; its digest covers the eight
+``[acc, nsym, bitpos]``).
 Inputs: Laplace(0, 6) coefficients, Q=16 quantizer rows (one of 16-bit
 values), uniform bytes for the epilogue, the IDCT tool's draw (int16 in
 [-2048, 2048), ``tools/mxu_idct_ab.make_inputs``), drawn from a fixed seed,
@@ -109,6 +112,11 @@ MEMFLOOR_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
 ORDER = ("parent", "change", "change", "parent")
 
 
+# The VLC kernel on its tool's bitstream and table, seeds 0-7.
+VLC_GEOMETRY = "vlc 2048 words, the tool's draw, seeds 0-7"
+VLC_SEEDS = 8
+
+
 def geometry_name(kernel: str, mode_name: str, m: int, wire: int) -> str:
     return f"{kernel} {mode_name} M={m} int{8 * wire}"
 
@@ -169,7 +177,8 @@ def geometry_names() -> List[str]:
             + [stacked_name(m, w) for m, w in STACKED_GEOMETRIES]
             + [truerez_name(m, w) for m, w in TRUEREZ_GEOMETRIES]
             + [mxu_name(v, m) for v, m in MXU_GEOMETRIES]
-            + [memfloor_name(m, w) for m, w in MEMFLOOR_GEOMETRIES])
+            + [memfloor_name(m, w) for m, w in MEMFLOOR_GEOMETRIES]
+            + [VLC_GEOMETRY])
 
 
 def stage_geometries() -> List[Tuple[str, int]]:
@@ -266,18 +275,22 @@ def side() -> dict:
         memfloor, rgb_stacked, rgb_truerez)
     from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
         color_stage, dequantize_stage, idct_stage)
-    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
+    from pim_jpeg_decoder_tpu_torch.ops.vlc import vlc
+    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab, vlc_bench
     from pim_jpeg_decoder_tpu_torch.utils.devbench import (
         rotation_count, seconds_per_launch)
 
     dev = torch.device("cuda", 0)
     results = {}
 
-    def measure(name: str, fn, bufs) -> None:
-        out = fn(bufs[0])
+    def measure(name: str, fn, bufs, digest_all: bool = False) -> None:
+        """Times ``fn`` over ``bufs``; the digest is of its output on the
+        first buffer, or on every buffer with ``digest_all``."""
+        outs = [fn(b) for b in (bufs if digest_all else bufs[:1])]
         torch.cuda.synchronize()
-        digest = hashlib.sha1(_as_bytes(torch, out)).hexdigest()
-        del out
+        digest = hashlib.sha1(b"".join(_as_bytes(torch, out)
+                                       for out in outs)).hexdigest()
+        del outs
         us = sorted(t * 1e6 for t in seconds_per_launch(fn, bufs,
                                                           samples=True))
         results[name] = {"us": statistics.median(us), "min_us": us[0],
@@ -346,6 +359,10 @@ def side() -> dict:
         measure(memfloor_name(m, wire), lambda b: memfloor(*b, mode), bufs)
         del bufs
         torch.cuda.empty_cache()
+    data, lut = (torch.from_numpy(a).to(dev) for a in vlc_bench.make_inputs())
+    seeds = [torch.tensor([i], dtype=torch.int32, device=dev)
+             for i in range(VLC_SEEDS)]
+    measure(VLC_GEOMETRY, lambda s: vlc(s, data, lut), seeds, digest_all=True)
     return {"card": torch.cuda.get_device_name(0), "results": results}
 
 

@@ -1,15 +1,20 @@
-"""Measures the serial variable-length-code decode rate of one GPU thread.
+"""Measures the variable-length-code decode rate of one GPU segment.
 
 Counterpart of the repository's ``tools/tpu_vlc_bench.py``: the same
 2,048-word bitstream and 256-entry table drawn from seed 0 (code lengths
 2-8, value bits 0-5, so a symbol advances ~7.5 bits, as a q75 AC stream
-does), one symbol per lookup, no stores: an upper bound on a GPU entropy
-decoder that runs one segment on one thread.  The kernel
-(``ops/vlc.py`` -> ``csrc/vlc.cu``) is first held against its plain version
-on the CPU, then timed with ``utils/devbench.seconds_per_launch`` (CUDA
-events), its start varied through ``seed & 1`` as the JAX tool varies it.
-Prints one JSON line with the JAX tool's keys (``value`` in Mbit/s,
-``msymbols_per_s``, ``bits_per_launch``, ``ns_per_symbol``).
+does), one table probe per symbol, no stores.  The kernel
+(``ops/vlc.py`` -> ``csrc/vlc.cu``) decodes the segment as 256-bit chunks
+from each of their 30 entry offsets at once and composes the chunks' maps
+across a cluster of 16 blocks.  That works because a symbol's advance here
+depends on its bit position alone; in a JPEG scan it also depends on the
+coefficient index and the table in use, so the rate is an upper bound on
+a GPU entropy decoder, as the JAX tool's is on the TPU's scalar core.  The
+kernel is first held against its plain version on the CPU, then timed with
+``utils/devbench.seconds_per_launch`` (CUDA events), its start varied
+through ``seed & 1`` as the JAX tool varies it.  Prints one JSON line with
+the JAX tool's keys (``value`` in Mbit/s, ``msymbols_per_s``,
+``bits_per_launch``, ``ns_per_symbol``).
 
     python -m pim_jpeg_decoder_tpu_torch.tools.vlc_bench
 
@@ -62,16 +67,18 @@ def run() -> dict:
     _, nsym, bits = vlc_reference(seeds[0], data, lut).tolist()
     dt = seconds_per_launch(lambda s: vlc(s, d_data, d_lut), d_seeds)
     return {
-        "metric": f"GPU single-thread VLC decode (upper bound), "
+        "metric": f"GPU chunk-parallel VLC decode (upper bound), "
                   f"{torch.cuda.get_device_name(dev)}",
         "value": round(bits / dt / 1e6, 1),
         "unit": "Mbit/s",
         "msymbols_per_s": round(nsym / dt / 1e6, 2),
         "bits_per_launch": bits,
         "ns_per_symbol": round(dt / nsym * 1e9, 2),
-        "note": "one 256-entry shared-memory table probe per symbol on one "
-                "thread, no stores - an upper bound on a one-segment GPU "
-                "VLC decoder",
+        "note": "256-bit chunks decoded from every entry offset at "
+                "once, their maps composed across a cluster; one "
+                "256-entry shared-memory table probe per symbol, no "
+                "stores - an upper bound on a one-segment GPU VLC "
+                "decoder whose advance depends on the position alone",
     }
 
 

@@ -34,7 +34,7 @@ def test_geometries_cover_every_mode_and_both_wires():
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
     assert len(names) == len(set(names)) == (16 + 3 + 4 + 4 + 8 + 3 + 3 + 6
-                                             + 3)
+                                             + 3 + 1)
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
@@ -184,7 +184,8 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     assert names[start + 11:] == (
         [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
         + [A.mxu_name(v, m) for v, m in A.MXU_GEOMETRIES]
-        + [A.memfloor_name(m, w) for m, w in A.MEMFLOOR_GEOMETRIES])
+        + [A.memfloor_name(m, w) for m, w in A.MEMFLOOR_GEOMETRIES]
+        + [A.VLC_GEOMETRY])
     want = {("4:2:0", 2, 16384, 8), ("4:2:0", 2, 16384, 16),
             ("4:2:0", 2, 196608, 8), ("4:2:0", 2, 196608, 16),
             ("4:2:0", 4, 196608, 8), ("4:2:0", 8, 196608, 8),
@@ -220,13 +221,14 @@ def test_truerez_and_mxu_geometries_are_named_and_last():
     int16, each beside rgb_kernel's geometry of the same M and wire; then
     the tensor-core IDCT: mxu2pass with pieces 1 and 2 and mxu64 at
     M=16,384, both mxu2pass forms and mxu64 at 196,608, each a variant the
-    IDCT tool runs.  Only the memory-floor geometries follow them."""
+    IDCT tool runs.  Only the memory-floor and VLC geometries follow
+    them."""
     from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab
 
     names = A.geometry_names()
     truerez = [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
     mxu = [A.mxu_name(v, m) for v, m in A.MXU_GEOMETRIES]
-    assert names[-12:-3] == truerez + mxu
+    assert names[-13:-4] == truerez + mxu
     assert truerez == ["truerez 4:2:0 M=16384 int8",
                        "truerez 4:2:0 M=16384 int16",
                        "truerez 4:2:0 M=196608 int16"]
@@ -260,10 +262,11 @@ def test_truerez_lines_carry_rgb_kernel_times():
 def test_memfloor_geometries_are_named_and_last():
     """The memory floor at 4:2:0, M=16,384 on both wires and 196,608 int16,
     appended after every earlier geometry (whose names stay as they were),
-    each beside rgb_kernel's geometry of the same M and wire."""
+    each beside rgb_kernel's geometry of the same M and wire; only the VLC
+    geometry follows it."""
     names = A.geometry_names()
     floor = [A.memfloor_name(m, w) for m, w in A.MEMFLOOR_GEOMETRIES]
-    assert names[-3:] == floor == ["memfloor 4:2:0 M=16384 int8",
+    assert names[-4:-1] == floor == ["memfloor 4:2:0 M=16384 int8",
                                    "memfloor 4:2:0 M=16384 int16",
                                    "memfloor 4:2:0 M=196608 int16"]
     for m, w in A.MEMFLOOR_GEOMETRIES:
@@ -283,3 +286,21 @@ def test_memfloor_lines_carry_rgb_kernel_times():
     assert ("rgb_kernel in the same runs: parent 160.20, change 160.40 us"
             in floor)
     assert sum("rgb_kernel in the same runs" in ln for ln in lines) == 1
+
+
+def test_vlc_geometry_is_named_and_last():
+    """The VLC kernel on its tool's draw, every seed's output in the
+    digest, after every earlier geometry; its line carries no rgb_kernel
+    note."""
+    names = A.geometry_names()
+    assert names[-1] == A.VLC_GEOMETRY == (
+        "vlc 2048 words, the tool's draw, seeds 0-7")
+    assert A.VLC_SEEDS == 8
+    table = A.verdict(_named_runs({
+        A.VLC_GEOMETRY: ((508.8, 508.1), (14.7, 14.8)),
+        "rgb 4:2:0 M=16384 int8": ((19.0, 19.2), (19.1, 19.3))}))
+    assert table[A.VLC_GEOMETRY]["verdict"] == "faster"
+    line = [ln for ln in A.report_lines(table, "card")
+            if ln.startswith("vlc")][0]
+    assert "rgb_kernel" not in line and line.endswith("| card")
+
