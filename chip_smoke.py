@@ -2706,7 +2706,8 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
               f"{', '.join(f'{r:.0f}' for r in rates)} (median "
               f"{statistics.median(rates):.0f}; MP/s "
               f"{statistics.median(rates) * mp_per_image:.1f}); stage "
-              f"seconds of a synchronised run: {split} | {card}",
+              f"seconds of a run with timers (h2d and device on the "
+              f"card's clock): {split} | {card}",
               flush=True)
     busy = device_busy(torch, lambda: run(1, None),
                        "batch path run (scale 1, uint8)")

@@ -56,7 +56,7 @@ from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (decode_mcus,
                                                           raster_epilogue)
 from pim_jpeg_decoder_tpu_torch.parallel.mesh import devices_of
 from pim_jpeg_decoder_tpu_torch.parallel.sharding import (adopt, copy_to,
-                                                          gather)
+                                                          gather, h2d_stream)
 from pim_jpeg_decoder_tpu_torch.runtime.batching import compact_wire
 
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -190,11 +190,12 @@ def _entropy_decode_pool(headers, prepare_threads: int, outs=None):
         headers, outs))
 
 
-def _tstage(timers, name: str):
-    """``timers.stage(name)`` or a no-op when no timers were passed."""
+def _tstage(timers, name: str, **how):
+    """``timers.stage(name, **how)`` or a no-op when no timers were
+    passed."""
     if timers is None:
         return contextlib.nullcontext()
-    return timers.stage(name)
+    return timers.stage(name, **how)
 
 
 @dataclasses.dataclass
@@ -226,12 +227,14 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
                 caller: str, scale: int, pin: bool, timers=None) -> _Staged:
     """Host half of a same-size batch decode: scan + entropy decode +
     transport staging + wire compaction.  ``timers`` (optional
-    StageTimers) accumulates scan / entropy / stage seconds."""
-    with _tstage(timers, "scan"):
+    StageTimers) accumulates scan / entropy / stage seconds, and the
+    thread CPU seconds of scan and stage (the rest of their wall clock is
+    spent off a CPU: waiting for the GIL, or descheduled)."""
+    with _tstage(timers, "scan", cpu=True):
         headers, h0, mode = _scan_same_size(blobs, caller)
     batch = len(blobs)
     per_img = h0.num_mcus
-    with _tstage(timers, "stage"):
+    with _tstage(timers, "stage", cpu=True):
         coeffs = np.zeros((batch * per_img, mode.g, 64), np.int16)
         qidx = np.zeros(batch * per_img, np.int32)
     # Decode straight into the transport buffer's per-image slices.
@@ -240,7 +243,7 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
             headers, prepare_threads,
             outs=[coeffs[i * per_img:(i + 1) * per_img]
                   for i in range(batch)])
-    with _tstage(timers, "stage"):
+    with _tstage(timers, "stage", cpu=True):
         for i in range(batch):
             qidx[i * per_img:(i + 1) * per_img] = i
         arrays = _transport((coeffs, qidx, build_qpool(headers, mode)),
@@ -251,9 +254,10 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
 
 def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                       prepare_threads: int, wire: str, caller: str,
-                      same_size: bool, pin: bool) -> _Staged:
+                      same_size: bool, pin: bool, timers=None) -> _Staged:
     """Host half of a crop-batch decode (validation + scan + entropy +
-    per-crop sub-grid staging + wire compaction).
+    per-crop sub-grid staging + wire compaction).  ``timers`` as in
+    :func:`_host_stage`.
 
     Each crop's covering MCU sub-grid has a fixed size (+1 MCU of slack
     for any sub-MCU alignment, the origin clamped to keep it inside the
@@ -277,10 +281,11 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                 f"crop origins and dims must be multiples of scale="
                 f"{scale} (got dims {crop_hw}, offending origins "
                 f"{bad[:3]})")
-    if same_size:
-        headers, h0, mode = _scan_same_size(blobs, caller)
-    else:
-        headers, h0, mode = _scan_same_mode(blobs, caller)
+    with _tstage(timers, "scan", cpu=True):
+        if same_size:
+            headers, h0, mode = _scan_same_size(blobs, caller)
+        else:
+            headers, h0, mode = _scan_same_mode(blobs, caller)
     for h, (y0, x0) in zip(headers, boxes):
         if not (0 <= y0 and 0 <= x0 and y0 + crop_h <= h.height
                 and x0 + crop_w <= h.width):
@@ -293,35 +298,31 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
     gw_c = min(max(h.mcu_cols for h in headers), -(-crop_w // px_w) + 1)
     batch = len(blobs)
     per_img = gh_c * gw_c
-    coeffs = np.zeros((batch * per_img, mode.g, 64), np.int16)
-    qidx = np.zeros(batch * per_img, np.int32)
-    oys = np.zeros(batch, np.int32)
-    oxs = np.zeros(batch, np.int32)
-
-    decoded = _entropy_decode_pool(headers, prepare_threads)
-    for i, ((y0, x0), h, c) in enumerate(zip(boxes, headers, decoded)):
-        gh, gw = h.mcu_rows, h.mcu_cols
-        r0 = max(0, min(y0 // px_h, gh - gh_c))
-        c0 = max(0, min(x0 // px_w, gw - gw_c))
-        # Output-pixel offsets into the sub-grid (exact: px_h, px_w, y0
-        # and x0 are multiples of scale).
-        oys[i] = (y0 - r0 * px_h) // scale
-        oxs[i] = (x0 - c0 * px_w) // scale
-        sub = c[: gh * gw].reshape(gh, gw, mode.g, 64)[r0:r0 + gh_c,
-                                                       c0:c0 + gw_c]
-        dst = coeffs[i * per_img:(i + 1) * per_img].reshape(
-            gh_c, gw_c, mode.g, 64)
-        dst[: sub.shape[0], : sub.shape[1]] = sub
-        qidx[i * per_img:(i + 1) * per_img] = i
-    arrays = _transport((coeffs, qidx, build_qpool(headers, mode), oys, oxs),
-                        wire, pin)
+    with _tstage(timers, "entropy"):
+        decoded = _entropy_decode_pool(headers, prepare_threads)
+    with _tstage(timers, "stage", cpu=True):
+        coeffs = np.zeros((batch * per_img, mode.g, 64), np.int16)
+        qidx = np.zeros(batch * per_img, np.int32)
+        oys = np.zeros(batch, np.int32)
+        oxs = np.zeros(batch, np.int32)
+        for i, ((y0, x0), h, c) in enumerate(zip(boxes, headers, decoded)):
+            gh, gw = h.mcu_rows, h.mcu_cols
+            r0 = max(0, min(y0 // px_h, gh - gh_c))
+            c0 = max(0, min(x0 // px_w, gw - gw_c))
+            # Output-pixel offsets into the sub-grid (exact: px_h, px_w,
+            # y0 and x0 are multiples of scale).
+            oys[i] = (y0 - r0 * px_h) // scale
+            oxs[i] = (x0 - c0 * px_w) // scale
+            sub = c[: gh * gw].reshape(gh, gw, mode.g, 64)[r0:r0 + gh_c,
+                                                           c0:c0 + gw_c]
+            dst = coeffs[i * per_img:(i + 1) * per_img].reshape(
+                gh_c, gw_c, mode.g, 64)
+            dst[: sub.shape[0], : sub.shape[1]] = sub
+            qidx[i * per_img:(i + 1) * per_img] = i
+        arrays = _transport((coeffs, qidx, build_qpool(headers, mode), oys,
+                             oxs), wire, pin)
     return _Staged(headers, mode, arrays, gh_c, gw_c, crop_h // scale,
                    crop_w // scale)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _dispatch(staged: _Staged, scale: int, norm, devices, timers=None):
@@ -329,30 +330,32 @@ def _dispatch(staged: _Staged, scale: int, norm, devices, timers=None):
     images, H2D on the device's side stream (its current stream waits on
     the copy's event) + decode kernel + raster epilogue; then the groups
     on ``devices[0]``, joined.  Every group gets the whole (small)
-    quantizer pool, so its ``qidx`` stays the batch's.  With ``timers``,
-    the h2d and device stages synchronise at their boundaries so the
-    split is attributable (a profiling run)."""
+    quantizer pool, so its ``qidx`` stays the batch's.  Nothing
+    synchronises.  With ``timers``, a card's h2d stage is timed by CUDA
+    events on the side stream around the copies, and its device stage by
+    events on the launch stream around the kernels (host wall clock on
+    the CPU); the ranges ``pjt.h2d`` and ``pjt.device`` cover this
+    thread's enqueueing."""
     coeffs, qidx, qpool, *offsets = staged.arrays
     per_img = staged.gh * staged.gw
     outs = []
     for (b0, b1), dev in zip(_groups(len(staged.headers), len(devices)),
                              devices):
-        with _tstage(timers, "h2d"):
+        side = launch = None
+        if timers is not None and dev.type == "cuda":
+            side, launch = h2d_stream(dev), torch.cuda.current_stream(dev)
+        with _tstage(timers, "h2d", stream=side):
             group, ready = copy_to(
                 [coeffs[b0 * per_img:b1 * per_img],
                  qidx[b0 * per_img:b1 * per_img], qpool,
                  *(o[b0:b1] for o in offsets)], dev)
             adopt(group, ready, dev)
-            if timers is not None:
-                _sync(dev)
-        with _tstage(timers, "device"):
+        with _tstage(timers, "device", stream=launch):
             c, q, p, *offs = group
             raw = decode_mcus(c, q, p, staged.mode, raw=True, scale=scale)
             outs.append(raster_epilogue(
                 raw, staged.mode, scale, b1 - b0, staged.gh, staged.gw,
                 staged.out_h, staged.out_w, *offs, norm=norm))
-            if timers is not None:
-                _sync(dev)
     if len(outs) == 1:
         return outs[0], staged.headers
     return gather(outs, axis=0, device=devices[0]), staged.headers
@@ -382,11 +385,13 @@ def decode_same_size_batch(
     pixel units) gives ``(pixels - mean) / std`` computed in float32 and
     cast last, in the same pass as the raster layout.  ``timers``
     (optional ``utils.profiling.StageTimers``) accumulates scan / entropy /
-    stage / h2d / device seconds, synchronising at the device stages;
-    leave it None on the throughput path.  A list of devices splits the
-    batch into groups of whole images, one a device, and returns the
-    joined tensor on the first (see the module docstring).  For
-    back-to-back batches use :func:`iter_decode_batches`.
+    stage seconds on the host and h2d / device seconds on the card (CUDA
+    events, read by ``timers.snapshot()``), and the thread CPU seconds of
+    scan and stage; the decode does not synchronise for it.  A list of
+    devices splits the batch into groups of whole images, one a device,
+    and returns the joined tensor on the first (see the module
+    docstring).  For back-to-back batches use
+    :func:`iter_decode_batches`.
     """
     _check_scale(scale)
     _check_wire(wire)
@@ -400,11 +405,12 @@ def decode_same_size_batch(
     return _dispatch(staged, scale, norm, devices, timers)
 
 
-def _prefetched(stage_thunks, prefetch: int):
+def _prefetched(stage_thunks, prefetch: int, timers=None):
     """Run host-stage thunks on up to ``prefetch`` worker threads, yielding
     their results in input order.  The thunk iterator advances on the
     consuming thread (its validation errors reach the caller), and the
-    pool drains fully on early generator close."""
+    pool drains fully on early generator close.  ``timers`` times the
+    consuming thread's wait for each result as stage ``queue``."""
     if prefetch < 1:
         raise ValueError(f"prefetch must be >= 1, got {prefetch}")
     it = iter(stage_thunks)
@@ -424,7 +430,8 @@ def _prefetched(stage_thunks, prefetch: int):
             if not submit_next():
                 break
         while pending:
-            staged = pending.popleft().result()
+            with _tstage(timers, "queue"):
+                staged = pending.popleft().result()
             submit_next()
             yield staged
 
@@ -448,7 +455,9 @@ def iter_decode_batches(
     up to ``prefetch`` upcoming batches runs on worker threads.  Device
     work is asynchronous, so decode of batch N overlaps entropy decode of
     the next ones.  Worker threads run host code only; every CUDA call is
-    made on the consuming thread.
+    made on the consuming thread.  ``timers`` as in
+    :func:`decode_same_size_batch`, and the consuming thread's wait for
+    each staged batch as stage ``queue``.
     """
     _check_scale(scale)
     _check_wire(wire)
@@ -464,7 +473,7 @@ def iter_decode_batches(
                 _host_stage, blobs, prepare_threads, wire,
                 "iter_decode_batches", scale, _on_card(devices), timers)
 
-    for staged in _prefetched(stage_thunks(), prefetch):
+    for staged in _prefetched(stage_thunks(), prefetch, timers):
         yield _dispatch(staged, scale, norm, devices, timers)
 
 
@@ -479,6 +488,7 @@ def decode_same_size_batch_crops(
     mean=None,
     std=None,
     device="cuda",
+    timers=None,
 ) -> Tuple[torch.Tensor, List[JpegHeader]]:
     """Decode one ``crop_h x crop_w`` crop per image -> ``[B, ch/scale,
     cw/scale, 3]`` on ``device``.
@@ -488,7 +498,7 @@ def decode_same_size_batch_crops(
     epilogue applies the per-image pixel offset; the pixels equal the same
     slice of a full (scaled) decode.  With ``scale`` != 1, crop origins
     and dims must be multiples of it.  All images must share dimensions
-    and sampling mode; ``dtype``/``mean``/``std`` as in
+    and sampling mode; ``dtype``/``mean``/``std``/``timers`` as in
     :func:`decode_same_size_batch`.
     """
     norm = _norm_static(dtype, mean, std)
@@ -496,8 +506,8 @@ def decode_same_size_batch_crops(
     staged = _host_stage_crops(blobs, boxes, crop_hw, scale,
                                prepare_threads, wire,
                                "decode_same_size_batch_crops", True,
-                               _on_card(devices))
-    return _dispatch(staged, scale, norm, devices)
+                               _on_card(devices), timers)
+    return _dispatch(staged, scale, norm, devices, timers)
 
 
 def decode_batch_crops(
@@ -511,19 +521,20 @@ def decode_batch_crops(
     mean=None,
     std=None,
     device="cuda",
+    timers=None,
 ) -> Tuple[torch.Tensor, List[JpegHeader]]:
     """Batched random-crop decode over MIXED-SIZE images (the sampling
     mode must match): a fixed ``crop_hw`` means a fixed covering MCU
     sub-grid, so the whole batch decodes in one launch.  Same
-    ``scale``/``dtype``/``mean``/``std`` semantics as
+    ``scale``/``dtype``/``mean``/``std``/``timers`` semantics as
     :func:`decode_same_size_batch_crops`.
     """
     norm = _norm_static(dtype, mean, std)
     devices = devices_of(device)
     staged = _host_stage_crops(blobs, boxes, crop_hw, scale,
                                prepare_threads, wire, "decode_batch_crops",
-                               False, _on_card(devices))
-    return _dispatch(staged, scale, norm, devices)
+                               False, _on_card(devices), timers)
+    return _dispatch(staged, scale, norm, devices, timers)
 
 
 def iter_decode_batch_crops(
@@ -538,6 +549,7 @@ def iter_decode_batch_crops(
     std=None,
     device="cuda",
     mixed_sizes: bool = False,
+    timers=None,
 ):
     """Streaming random-crop decode with host/device overlap.
 
@@ -545,7 +557,7 @@ def iter_decode_batch_crops(
     what :func:`decode_same_size_batch_crops` (or, with
     ``mixed_sizes=True``, :func:`decode_batch_crops`) returns for it,
     while the host half of up to ``prefetch`` upcoming batches runs on
-    worker threads.
+    worker threads.  ``timers`` as in :func:`iter_decode_batches`.
     """
     norm = _norm_static(dtype, mean, std)
     devices = devices_of(device)
@@ -555,7 +567,7 @@ def iter_decode_batch_crops(
             yield functools.partial(
                 _host_stage_crops, list(blobs), list(boxes), crop_hw, scale,
                 prepare_threads, wire, "iter_decode_batch_crops",
-                not mixed_sizes, _on_card(devices))
+                not mixed_sizes, _on_card(devices), timers)
 
-    for staged in _prefetched(stage_thunks(), prefetch):
-        yield _dispatch(staged, scale, norm, devices)
+    for staged in _prefetched(stage_thunks(), prefetch, timers):
+        yield _dispatch(staged, scale, norm, devices, timers)

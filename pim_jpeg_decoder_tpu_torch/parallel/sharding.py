@@ -30,6 +30,15 @@ _H2D_STREAMS: Dict[int, torch.cuda.Stream] = {}
 _LOCK = threading.Lock()
 
 
+def h2d_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream that :func:`copy_to` copies to card ``device`` on."""
+    with _LOCK:
+        side = _H2D_STREAMS.get(device.index)
+        if side is None:
+            side = _H2D_STREAMS[device.index] = torch.cuda.Stream(device)
+    return side
+
+
 def copy_to(tensors: Sequence[torch.Tensor], device: torch.device
             ) -> Tuple[List[torch.Tensor], Optional[torch.cuda.Event]]:
     """Start copying host tensors (page-locked, for an asynchronous copy)
@@ -38,10 +47,7 @@ def copy_to(tensors: Sequence[torch.Tensor], device: torch.device
     and no event."""
     if device.type == "cpu":
         return list(tensors), None
-    with _LOCK:
-        side = _H2D_STREAMS.get(device.index)
-        if side is None:
-            side = _H2D_STREAMS[device.index] = torch.cuda.Stream(device)
+    side = h2d_stream(device)
     with torch.cuda.stream(side):
         out = [t.to(device, non_blocking=True) for t in tensors]
         ready = side.record_event()

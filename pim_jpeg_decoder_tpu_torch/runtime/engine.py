@@ -46,7 +46,8 @@ from pim_jpeg_decoder_tpu_torch.native import native_available
 from pim_jpeg_decoder_tpu_torch.ops import specs as S
 from pim_jpeg_decoder_tpu_torch.utils.config import EngineConfig
 from pim_jpeg_decoder_tpu_torch.utils.log import logger
-from pim_jpeg_decoder_tpu_torch.utils.profiling import STAGES, StageTimers
+from pim_jpeg_decoder_tpu_torch.utils.profiling import (STAGES, StageTimers,
+                                                        all_threads_config)
 from pim_jpeg_decoder_tpu_torch.models.pipeline import (
     assemble_raster_raw_scaled,
     assemble_raster_ycbcr,
@@ -439,8 +440,9 @@ class DecodeEngine:
         """Decode (name, bytes) pairs through the full pipeline.
 
         Set PIM_JPEG_TPU_PROFILE=<dir> to record a ``torch.profiler`` trace
-        of the run (host ops, and on a card the kernels and copies), written
-        as a Chrome trace JSON file into that directory.
+        of the run (host ops and every thread's ``pjt.<stage>`` ranges, and
+        on a card the kernels and copies), written as a Chrome trace JSON
+        file into that directory.
         """
         trace_dir = os.environ.get("PIM_JPEG_TPU_PROFILE")
         if not trace_dir:
@@ -450,7 +452,8 @@ class DecodeEngine:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        with profile(activities=activities,
+                     experimental_config=all_threads_config()) as prof:
             report = self._decode_named_blobs(items, write)
             for dev in set(self.devices):
                 if dev.type == "cuda":

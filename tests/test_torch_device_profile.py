@@ -9,6 +9,7 @@ measurement itself runs on the card in chip_smoke.py.
 
 import json
 import os
+import threading
 import types
 
 import numpy as np
@@ -196,6 +197,35 @@ def test_cli_profile_writes_a_trace(blobs, tmp_path, monkeypatch, capsys):
     assert len(traces) == 1 and traces[0].suffix == ".json"
     trace = json.loads(traces[0].read_text())
     assert trace["traceEvents"]
+
+
+def test_cli_profile_trace_holds_the_worker_threads(blobs, tmp_path,
+                                                   monkeypatch, capsys):
+    """The trace records every thread: the prepare workers' ``pjt.prepare``
+    ranges beside the calling thread's ``pjt.h2d``."""
+    from pim_jpeg_decoder_tpu_torch.cli import main
+    from pim_jpeg_decoder_tpu_torch.utils.profiling import all_threads_config
+
+    if all_threads_config() is None:
+        pytest.skip("this torch profiles the starting thread alone")
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("PIM_JPEG_TPU_PROFILE", str(trace_dir))
+    paths = []
+    for name, data in blobs[:3]:
+        (tmp_path / name).write_bytes(data)
+        paths.append(str(tmp_path / name))
+    assert main([*paths, "--device", "cpu", "--profile", str(trace_dir),
+                 "--quiet"]) == 0
+    capsys.readouterr()
+    (trace,) = trace_dir.iterdir()
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    tids = {}
+    for e in events:
+        tids.setdefault(e["name"], set()).add(e["tid"])
+    me = threading.get_native_id()
+    assert len(tids["pjt.prepare"]) >= 1 and me not in tids["pjt.prepare"]
+    assert tids["pjt.h2d"] == {me}
 
 
 def test_cli_rejects_an_unknown_device_profile_mode(tmp_path):

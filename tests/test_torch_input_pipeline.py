@@ -23,10 +23,10 @@ from pim_jpeg_decoder_tpu.codec.encoder import encode_jpeg
 from pim_jpeg_decoder_tpu.codec.header import JpegError
 from pim_jpeg_decoder_tpu.models import input_pipeline as J
 from pim_jpeg_decoder_tpu.ops import specs as S
-from pim_jpeg_decoder_tpu.utils.profiling import StageTimers
 from pim_jpeg_decoder_tpu_torch.codec.header import JpegError as PortJpegError
 from pim_jpeg_decoder_tpu_torch.models import input_pipeline as T
 from pim_jpeg_decoder_tpu_torch.ops import decode_kernel as K
+from pim_jpeg_decoder_tpu_torch.utils.profiling import StageTimers
 
 LANE_TILE = 128
 IMAGENET = dict(mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375))
@@ -382,7 +382,10 @@ def test_cuda_without_a_card_raises():
 def test_timers_record_every_stage():
     timers = StageTimers()
     T.decode_same_size_batch(list(SAME), device="cpu", timers=timers)
-    assert {"scan", "entropy", "stage", "h2d", "device"} <= set(
+    for _ in T.iter_decode_batches([list(SAME)], device="cpu",
+                                   timers=timers):
+        pass
+    assert {"scan", "entropy", "stage", "h2d", "device", "queue"} <= set(
         timers.snapshot())
 
 
