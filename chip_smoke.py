@@ -19,9 +19,10 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    stages composed equal to the fused RGB kernel; the RGB kernels also
    against the NumPy oracle (full and scaled) on encoded images; the raster
    epilogue for every mode and scale, u8/f32/bf16/f16, full and cropped,
-   and where its band design branches (``epilogue_band_cases``: MCU columns
+   and where its two forms branch (``epilogue_band_cases``: MCU columns
    of ``BAND_GWS``, outputs 1 to the full grid wide, B = 1, crop origins
-   at and past every edge, the B=256 ImageNet geometry in all four types);
+   at and past every edge, the B=256 ImageNet geometry in all four types,
+   the loader cell's B=256 256x256 bfloat16 batch in the row form);
    the dequantize stage at the M values of ``DEQUANT_MS`` with wire-limit
    coefficients and out-of-range ``qidx`` (``dequant_cases``);
    the memory-floor, chroma-truerez and stacked kernels
@@ -461,7 +462,7 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
         n_mcus += header.num_mcus
     n_tile, tile_note = tile_cases(torch, dev, rng, max_err)
     n_epi = epilogue_cases(torch, dev, rng, max_err)
-    n_band = epilogue_band_cases(torch, dev, rng)
+    n_band, n_rows = epilogue_band_cases(torch, dev, rng)
     n_deq = dequant_cases(torch, dev, rng, max_err)
     n_stage = stage_tile_cases(torch, dev, rng, max_err)
     mxu_line = mxu_cases(torch, dev, rng, max_err)
@@ -480,10 +481,13 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
     print(f"[2 kernels] {n_tile} tile cases byte-identical: {tile_note}",
           flush=True)
     print(f"[2 kernels] {n_band} raster-epilogue band cases byte-identical "
-          f"(gray and 4:2:0 x scale 1/2 x gw={list(BAND_GWS)} x out_w 1/5/"
-          f"500/full x u8/f32/bf16/f16 x B=1 full / B=6 crops with origins "
-          f"at 0, the far edge, negative, past the edge, odd, even; and the "
-          f"B=256 ImageNet geometry at scale 1/2 in all four types); "
+          f"({n_rows} in the row form; gray and 4:2:0 x scale 1/2 x gw="
+          f"{list(BAND_GWS)} x out_w 1/5/500/full less one MCU/full x "
+          f"u8/f32/bf16/f16 x B=1 "
+          f"full / B=6 crops with origins at 0, the far edge, negative, "
+          f"past the edge, odd, even; the B=256 ImageNet geometry at scale "
+          f"1/2 in all four types; the loader cell's B=256 256x256 scale 1 "
+          f"-> bfloat16 CLIP batch, row form); "
           f"{n_deq} dequantize-stage cases byte-identical (5 modes x i16/i8 "
           f"x M={list(DEQUANT_MS)}, wire-limit coefficients against 16-bit "
           f"quantizers, qidx Q and -1; staged == fused in each)", flush=True)
@@ -844,39 +848,61 @@ def epilogue_cases(torch, dev, rng, max_err) -> int:
     return cases
 
 
-# MCU columns per image where the epilogue's band design branches: 32 (one
-# aligned chunk), 1, 17 (a ragged chunk), 33 and 128 (a chunk loop).
-BAND_GWS = (32, 1, 17, 33, 128)
+# MCU columns per image where the epilogue's two forms branch.  Banded
+# (crops, and full batches the row form does not take): 32 (one aligned
+# chunk), 1, 17 (a ragged chunk), 33 and 128 (a chunk loop).  Row form
+# (full batches of 4:2:0 at scale 1, bands of 32 // gw whole MCU rows, and
+# 32 itself): 16 (two rows), 8 (four rows), 14 (28-byte runs in 4-byte
+# copies), 24 (8-byte copies), and 31 (a 31-byte run, which no copy size
+# divides: banded).
+BAND_GWS = (32, 1, 17, 33, 128, 16, 8, 14, 24, 31)
+# Widths of BAND_GWS given an M that is a multiple of 16, so that the row
+# form can take their full batches; the others keep 3 MCUs over the batch
+# where gw % 16 != 0, so that the banded form's byte loads run too.
+ROW_GWS = (16, 8, 14, 24, 31)
 # M values of the dequantize stage cases: around the 4 blocks a warp takes
 # at once, an odd count that ends inside a CUDA block, and a B=256 batch.
 DEQUANT_MS = (1, 3, 31, 33, 1027, 196608)
 
 
-def epilogue_band_cases(torch, dev, rng) -> int:
-    """raster_epilogue against its plain version where the band design
-    branches, byte for byte in every output type: gray and 4:2:0 at scale
-    1 and 2, ``gw`` of ``BAND_GWS`` (M % 16 == 0 for 32, else not), outputs
-    1, 5, 500 (where the grid has them) and the full grid wide, B = 1 for
-    the full form, and six crop origins (0, the far edge, negative, past
-    the edge, odd, even) as one B = 6 launch; then the B=256 ImageNet
-    geometry itself (24 x 32 MCUs of 4:2:0, 500x375) at scale 1 and 2 in
-    all four output types."""
+def epilogue_band_cases(torch, dev, rng) -> tuple:
+    """raster_epilogue against its plain version where its two forms
+    branch, byte for byte in every output type: gray and 4:2:0 at scale 1
+    and 2, ``gw`` of ``BAND_GWS`` (M % 16 == 0 for multiples of 16 and
+    ``ROW_GWS``, else not), outputs 1, 5, 500, one MCU short of the grid
+    (where the grid has them) and the full grid wide, B = 1 for the full form, and six crop origins
+    (0, the far edge, negative, past the edge, odd, even) as one B = 6
+    launch; then the B=256 ImageNet geometry itself (24 x 32 MCUs of
+    4:2:0, 500x375) at scale 1 and 2 in all four output types, and the
+    loader cell's (16 x 16 MCUs, 256x256, scale 1 -> bfloat16 with CLIP's
+    statistics).  Returns ``(cases, launches that took the row form)``;
+    fails unless the loader cell's launch took it."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        raster_epilogue, raster_epilogue_reference)
+        launch_counts, raster_epilogue, raster_epilogue_reference)
+    from pim_jpeg_decoder_tpu_torch.tools.decode_ab import (
+        CLIP_NORM, LOADER_BATCH)
 
     dtypes = (None, torch.float32, torch.bfloat16, torch.float16)
+    taken = 0
 
-    def check(what, raw, mode, scale, b, gh, gw, *args, dtype) -> None:
-        norm = _norm_static(dtype, **IMAGENET_NORM) if dtype else None
+    def check(what, raw, mode, scale, b, gh, gw, *args, dtype,
+              stats=IMAGENET_NORM) -> bool:
+        nonlocal taken
+        norm = _norm_static(dtype, **stats) if dtype else None
+        before = launch_counts()["raster_rows"]
         got = raster_epilogue(raw, mode, scale, b, gh, gw, *args, norm=norm)
+        row_form = launch_counts()["raster_rows"] > before
         want = raster_epilogue_reference(raw, mode, scale, b, gh, gw, *args,
                                          norm=norm)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
             fail(f"raster epilogue != plain version: {mode.name} scale "
-                 f"{scale} {dtype} B={b} gh={gh} gw={gw} {what}")
+                 f"{scale} {dtype} B={b} gh={gh} gw={gw} {what} ("
+                 f"{'row' if row_form else 'banded'} form)")
+        taken += row_form
+        return row_form
 
     cases = 0
     b, gh = 6, 2
@@ -885,14 +911,17 @@ def epilogue_band_cases(torch, dev, rng) -> int:
         for scale in (1, 2):
             n = 8 // scale
             for gw in BAND_GWS:
-                m = b * gh * gw + (0 if gw % 16 == 0 else 3)
+                m = b * gh * gw
+                m += -m % 16 if gw in ROW_GWS else (0 if gw % 16 == 0
+                                                     else 3)
                 raw = torch.from_numpy(rng.integers(
                     0, 256, (3, mode.luma_slots, n * n, m),
                     dtype=np.uint8)).to(dev)
                 grid_h, grid_w = gh * mode.v * n, gw * mode.h * n
                 out_h = grid_h - 3
-                for out_w in sorted({1, 5, 500, grid_w}):
-                    if out_w > grid_w:
+                for out_w in sorted({1, 5, 500, grid_w - mode.h * n,
+                                     grid_w}):
+                    if not 0 < out_w <= grid_w:
                         continue
                     far_y, far_x = grid_h - out_h, grid_w - out_w
                     origins = ((0, 0), (far_y, far_x), (-3, -2),
@@ -919,8 +948,16 @@ def epilogue_band_cases(torch, dev, rng) -> int:
                   -(-375 // scale), -(-500 // scale), dtype=dtype)
             cases += 1
         del raw
+    b, gh, gw, height, width = LOADER_BATCH
+    raw = torch.randint(0, 256, (3, mode.luma_slots, 64, b * gh * gw),
+                        dtype=torch.uint8, device=dev, generator=gen)
+    if not check("the loader cell's batch", raw, mode, 1, b, gh, gw, height,
+                 width, dtype=torch.bfloat16, stats=CLIP_NORM):
+        fail("the loader cell's batch did not take the epilogue's row form")
+    cases += 1
+    del raw
     torch.cuda.empty_cache()
-    return cases
+    return cases, taken
 
 
 def dequant_cases(torch, dev, rng, max_err) -> int:
@@ -1325,8 +1362,8 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
           f"500x375 4:2:0 at scale 1/2 x uint8/bfloat16-normalised "
           f"({n_images} images): every batch == oracle rasters; launches "
           f"rgb={counts['rgb']} rgb_scaled={counts['rgb_scaled']} "
-          f"raster={counts['raster']} plain_on_cuda="
-          f"{counts['plain_on_cuda']}", flush=True)
+          f"raster={counts['raster']} (row form {counts['raster_rows']}) "
+          f"plain_on_cuda={counts['plain_on_cuda']}", flush=True)
 
     crop_blobs, crop_refs = crop_set
     reset_launch_counts()
@@ -2366,7 +2403,7 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
     out_types = {"h": None, "f": torch.float32,
                  "13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
     epi = re.compile(r"raster_epilogue_kernelI(h|f|13__nv_bfloat16|6__half)"
-                     r"Li(\d+)ELi(\d+)E")
+                     r"Li(\d+)ELi(\d+)ELb([01])E")
     deq = re.compile(r"dequant_stage_kernelI([as])Li(\d+)E")
     color = re.compile(r"color_stage_kernelILi(\d)ELi(\d)ELi(\d)ELb([01])E")
     scaled = re.compile(r"rgb_scaled_kernelI([as])Li(\d)ELi(\d)ELi(\d)ELi(\d)E"
@@ -2388,11 +2425,13 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
             found["epilogue"].append(int(regs))
             if h == mode.h and n in (8, 4):
                 dtype = out_types[hit.group(1)]
-                blocks, smem = raster_occupancy(mode, 8 // n, dtype)
+                row_form = hit.group(4) == "1"
+                blocks, smem = raster_occupancy(mode, 8 // n, dtype, row_form)
                 print(f"[4 times] raster_epilogue_kernel 4:2:0 scale "
-                      f"{8 // n} -> {dtype or 'uint8'}: {regs} registers, "
-                      f"{smem} B dynamic shared memory, {blocks} blocks/SM "
-                      f"({blocks * 8} warps) | {card}", flush=True)
+                      f"{8 // n} -> {dtype or 'uint8'} "
+                      f"({'row' if row_form else 'banded'} form): {regs} "
+                      f"registers, {smem} B dynamic shared memory, {blocks} "
+                      f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
         hit = deq.search(mangled)
         if hit:
             found["dequant"].append(int(regs))
@@ -2517,14 +2556,15 @@ def redesign_resources(torch, card: str, sass: dict) -> None:
                   f"({'16-byte' if vec16 else 'byte'} stores): {regs} "
                   f"registers, {smem} B dynamic shared memory, {blocks} "
                   f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-    want = {"epilogue": 32, "dequant": 8, "idct": 1, "color": 10,
+    want = {"epilogue": 36, "dequant": 8, "idct": 1, "color": 10,
             "scaled": 60, "stacked": 16, "truerez": 16, "mxu2pass": 2,
             "memfloor": 12, "mxu64": 1}
     if {k: len(v) for k, v in found.items()} != want:
         names = ", ".join(f"{len(v)} {k}" for k, v in found.items())
         fail(f"nvcc.log names {names} instantiations, expected {want}")
-    print(f"[4 times] raster_epilogue_kernel: 32 instantiations (4 output "
-          f"types x n 8/4/2/1 x h 1/2), {min(found['epilogue'])}-"
+    print(f"[4 times] raster_epilogue_kernel: 36 instantiations (4 output "
+          f"types x banded n 8/4/2/1 x h 1/2, and row form n 8 h 2), "
+          f"{min(found['epilogue'])}-"
           f"{max(found['epilogue'])} registers; dequant_stage_kernel: 8 "
           f"(2 wires x g 1/3/4/6), {min(found['dequant'])}-"
           f"{max(found['dequant'])} registers; idct_stage_kernel: 1, "
@@ -2613,7 +2653,7 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
         iter_decode_batches)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        decode_mcus, decode_mcus_reference, raster_epilogue,
+        decode_mcus, decode_mcus_reference, launch_counts, raster_epilogue,
         raster_epilogue_reference, raster_occupancy)
     from pim_jpeg_decoder_tpu_torch.tools.decode_ab import crop_origins
 
@@ -2649,7 +2689,9 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
         if crop:
             args += crop_origins(torch, rng, batch, scale,
                                  (h0.height, h0.width), crop, dev)
+        before = launch_counts()["raster_rows"]
         k = time_band(lambda r: raster_epilogue(r, *args, norm=norm), raws)
+        row_form = launch_counts()["raster_rows"] > before
         p = time_band(lambda r: raster_epilogue_reference(
             r, *args, norm=norm), raws, runs=10)
         out_elems = batch * out_h * out_w * 3
@@ -2665,12 +2707,14 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
                "raster" if scale == 1 else "raster_scale2")
         times[key] = timing(k, p, b)
         blocks, smem = raster_occupancy(
-            mode, scale, getattr(torch, dtype_name) if dtype_name else None)
+            mode, scale, getattr(torch, dtype_name) if dtype_name else None,
+            rows=row_form)
         print(f"[4 times] raster epilogue B={batch} {form} -> "
               f"{dtype_name or 'uint8'} [{batch}, {out_h}, {out_w}, 3]"
               f": {us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
               f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound; "
-              f"{smem} B dynamic shared memory, {blocks} blocks/SM); plain "
+              f"{'row' if row_form else 'banded'} form, {smem} B dynamic "
+              f"shared memory, {blocks} blocks/SM); plain "
               f"PyTorch {us_band(p)}; 30/10 launches "
               f"over 10 rotating inputs | {card}", flush=True)
         del raws

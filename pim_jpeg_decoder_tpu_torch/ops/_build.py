@@ -151,6 +151,10 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_mxu64_occupancy,
                      [ctypes.c_int64, ptr, ptr, ptr]),
                     (lib.pjt_cuda_raster_occupancy, [i32] * 4 + [ptr, ptr]),
+                    (lib.pjt_cuda_raster_rows_occupancy,
+                     [i32] * 4 + [ptr, ptr]),
+                    (lib.pjt_cuda_raster_rows,
+                     [ptr, ctypes.c_int64] + [i32] * 5 + [ptr]),
                     (lib.pjt_cuda_dequant_occupancy, [i32] * 2 + [ptr]),
                     (lib.pjt_cuda_idct_occupancy, [ptr, ptr]),
                     (lib.pjt_cuda_color_occupancy, [i32] * 4 + [ptr, ptr])):

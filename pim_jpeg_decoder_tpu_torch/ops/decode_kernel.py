@@ -38,9 +38,12 @@ from pim_jpeg_decoder_tpu_torch.ops.idct_math import idct_1d
 
 # Launch counters: each kernel's wrapper adds one where it launches, and
 # "plain_on_cuda" counts plain-version calls on CUDA tensors (a run that
-# claims to use the kernels must show 0 there).
+# claims to use the kernels must show 0 there).  "raster" counts every
+# epilogue launch, "raster_rows" those that took its row form (full
+# batches in bands of whole MCU rows, see csrc/raster_epilogue.cu).
 _counts: Dict[str, int] = {"rgb": 0, "ycbcr": 0, "rgb_scaled": 0,
-                           "raster": 0, "dequant": 0, "idct": 0, "color": 0,
+                           "raster": 0, "raster_rows": 0, "dequant": 0,
+                           "idct": 0, "color": 0,
                            "memfloor": 0, "truerez": 0, "stacked": 0,
                            "mxu2pass": 0, "mxu64": 0, "vlc": 0,
                            "plain_on_cuda": 0}
@@ -441,17 +444,22 @@ def _check_epilogue(raw, mode: S.ModeSpec, scale: int, batch: int, gh: int,
 
 
 def raster_occupancy(mode: S.ModeSpec, scale: int,
-                     dtype: Optional[torch.dtype] = None) -> Tuple[int, int]:
+                     dtype: Optional[torch.dtype] = None,
+                     rows: bool = False) -> Tuple[int, int]:
     """``(blocks per SM, dynamic shared memory bytes)`` of the epilogue
     kernel that ``mode`` at ``scale`` launches for output ``dtype`` (None:
-    uint8), from the CUDA occupancy calculator on the current card."""
+    uint8), in its banded form or (``rows``; scale 1 of modes two blocks
+    wide only) its row form, from the CUDA occupancy calculator on the
+    current card."""
     import ctypes
 
     from pim_jpeg_decoder_tpu_torch.ops._build import load
+    lib = load()
+    query = (lib.pjt_cuda_raster_rows_occupancy if rows
+             else lib.pjt_cuda_raster_occupancy)
     blocks, smem = ctypes.c_int(), ctypes.c_int()
-    rc = load().pjt_cuda_raster_occupancy(
-        mode.v, mode.h, 8 // scale, _OUT_KINDS[dtype], ctypes.byref(blocks),
-        ctypes.byref(smem))
+    rc = query(mode.v, mode.h, 8 // scale, _OUT_KINDS[dtype],
+               ctypes.byref(blocks), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc}")
     return blocks.value, smem.value
@@ -502,5 +510,9 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
                            f"{scale}, {batch}x{out_h}x{out_w}, {dtype}) "
                            f"failed to launch: cudaError {rc}")
     _count("raster")
+    if lib.pjt_cuda_raster_rows(raw.data_ptr(), raw.shape[3], mode.h,
+                                8 // scale, gw, out_w, oys is not None,
+                                out.data_ptr()):
+        _count("raster_rows")
     return out
 

@@ -23,8 +23,12 @@ Geometries (``GEOMETRIES``): both kernels in all 5 modes at M=16,384 on
 the int8 wire, and 4:2:0 at M=16,384 int16 and at M=196,608 (a B=256
 ImageNet batch) on both wires; the raster epilogue
 (``EPILOGUE_GEOMETRIES``) on that batch (256 images of 24 x 32 4:2:0 MCUs,
-500x375) at scale 1 -> uint8, scale 2 -> bfloat16 normalised, and 224x224
-crops of the scale-1 batch -> bfloat16 normalised; the dequantize stage
+500x375) at scale 1 -> uint8, scale 2 -> bfloat16 normalised, 224x224
+crops of the scale-1 batch -> bfloat16 normalised and scale 1 -> float32
+normalised, on full batches of 224x224, 384x384 and 512x512 images
+(``SQUARE_BATCHES``) -> bfloat16, and on the loader
+benchmark's batch (``LOADER_BATCH``: 256 images of 16 x 16 4:2:0 MCUs,
+256x256) at scale 1 -> bfloat16 with CLIP's statistics; the dequantize stage
 (``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires;
 the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
 4:2:0, M=16,384 and 196,608, int16: the IDCT on the dequantize stage's
@@ -78,12 +82,34 @@ GEOMETRIES: Tuple[Tuple[str, tuple, int, int], ...] = tuple(
 BATCH = (256, 24, 32, 375, 500)
 IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
                      std=(58.395, 57.12, 57.375))
-# (label, scale, output dtype name or None for uint8, crop size or None)
-EPILOGUE_GEOMETRIES: Tuple[Tuple[str, int, Optional[str], Optional[tuple]],
-                           ...] = (
-    ("scale 1 -> uint8", 1, None, None),
-    ("scale 2 -> bfloat16", 2, "bfloat16", None),
-    ("224x224 crops -> bfloat16", 1, "bfloat16", (224, 224)))
+# The batch of the loader benchmark's cell (perfbench loader-laion256):
+# 256 images of 16 x 16 4:2:0 MCUs, 256x256, normalised by CLIP's mean and
+# std x 255.
+LOADER_BATCH = (256, 16, 16, 256, 256)
+CLIP_NORM = dict(mean=(122.7709383, 116.7460125, 104.09373615),
+                 std=(68.5005327, 66.6321579, 70.32316305))
+# Full batches of square 4:2:0 images that the epilogue's row form takes
+# with 4-byte (224x224: 28-MCU runs), 8-byte (384x384: 24) and 16-byte
+# copies (512x512: one MCU row a band).
+SQUARE_BATCHES = ((256, 14, 14, 224, 224), (256, 24, 24, 384, 384),
+                  (64, 32, 32, 512, 512))
+# (label, batch, scale, output dtype name or None for uint8, crop size or
+# None, mean and std)
+EPILOGUE_GEOMETRIES: Tuple[Tuple[str, tuple, int, Optional[str],
+                                 Optional[tuple], dict], ...] = (
+    ("scale 1 -> uint8", BATCH, 1, None, None, IMAGENET_NORM),
+    ("scale 2 -> bfloat16", BATCH, 2, "bfloat16", None, IMAGENET_NORM),
+    ("224x224 crops -> bfloat16", BATCH, 1, "bfloat16", (224, 224),
+     IMAGENET_NORM),
+    ("scale 1 -> float32", BATCH, 1, "float32", None, IMAGENET_NORM),
+    ("scale 1 -> bfloat16 CLIP", LOADER_BATCH, 1, "bfloat16", None,
+     CLIP_NORM),
+    ("scale 1 -> bfloat16", SQUARE_BATCHES[0], 1, "bfloat16", None,
+     IMAGENET_NORM),
+    ("scale 1 -> bfloat16", SQUARE_BATCHES[1], 1, "bfloat16", None,
+     IMAGENET_NORM),
+    ("scale 1 -> bfloat16", SQUARE_BATCHES[2], 1, "bfloat16", None,
+     IMAGENET_NORM))
 # (M, wire bytes) of the dequantize stage at 4:2:0
 DEQUANT_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
     (16384, 2), (16384, 1), (196608, 2), (196608, 1))
@@ -121,8 +147,8 @@ def geometry_name(kernel: str, mode_name: str, m: int, wire: int) -> str:
     return f"{kernel} {mode_name} M={m} int{8 * wire}"
 
 
-def epilogue_name(label: str) -> str:
-    b, _, _, h, w = BATCH
+def epilogue_name(label: str, batch: tuple = BATCH) -> str:
+    b, _, _, h, w = batch
     return f"epilogue B={b} {w}x{h} 4:2:0 {label}"
 
 
@@ -170,7 +196,8 @@ def geometry_names() -> List[str]:
 
     return ([geometry_name(k, S.mode_for(key).name, m, w)
              for k, key, m, w in GEOMETRIES]
-            + [epilogue_name(label) for label, _, _, _ in EPILOGUE_GEOMETRIES]
+            + [epilogue_name(label, batch)
+               for label, batch, *_ in EPILOGUE_GEOMETRIES]
             + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES]
             + [stage_name(stage, m) for stage, m in stage_geometries()]
             + [scaled_name(*g) for g in SCALED_GEOMETRIES]
@@ -228,8 +255,9 @@ def crop_origins(torch, rng, batch: int, scale: int, image_hw: tuple,
         for full, size in zip(image_hw, crop))
 
 
-def _epilogue_case(torch, mode, scale: int, dtype_name: Optional[str],
-                   crop: Optional[tuple], dev):
+def _epilogue_case(torch, mode, batch: tuple, scale: int,
+                   dtype_name: Optional[str], crop: Optional[tuple],
+                   stats: dict, dev):
     """``(fn, rotating raw inputs)`` of one epilogue geometry: uniform
     bytes in the decode kernels' layout, and seeded crop origins."""
     import numpy as np
@@ -238,13 +266,14 @@ def _epilogue_case(torch, mode, scale: int, dtype_name: Optional[str],
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import raster_epilogue
     from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
 
-    b, gh, gw, height, width = BATCH
+    b, gh, gw, height, width = batch
     n = 8 // scale
-    rng = np.random.default_rng(SEED + 97 * scale + (5 if crop else 0))
+    rng = np.random.default_rng(SEED + 97 * scale + (5 if crop else 0)
+                                + (0 if batch == BATCH else 11))
     shape = (3, mode.luma_slots, n * n, b * gh * gw)
     raws = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
             .to(dev) for _ in range(rotation_count(int(np.prod(shape)), dev))]
-    norm = (_norm_static(getattr(torch, dtype_name), **IMAGENET_NORM)
+    norm = (_norm_static(getattr(torch, dtype_name), **stats)
             if dtype_name else None)
     out_h, out_w = crop or (-(-height // scale), -(-width // scale))
     origins = (crop_origins(torch, rng, b, scale, (height, width), crop, dev)
@@ -305,9 +334,10 @@ def side() -> dict:
         del bufs
         torch.cuda.empty_cache()
     mode = S.mode_for((2, 2, 3))
-    for label, scale, dtype_name, crop in EPILOGUE_GEOMETRIES:
-        fn, raws = _epilogue_case(torch, mode, scale, dtype_name, crop, dev)
-        measure(epilogue_name(label), fn, raws)
+    for label, batch, scale, dtype_name, crop, stats in EPILOGUE_GEOMETRIES:
+        fn, raws = _epilogue_case(torch, mode, batch, scale, dtype_name,
+                                  crop, stats, dev)
+        measure(epilogue_name(label, batch), fn, raws)
         del fn, raws
         torch.cuda.empty_cache()
     for m, wire in DEQUANT_GEOMETRIES:

@@ -33,13 +33,16 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == (16 + 3 + 4 + 4 + 8 + 3 + 3 + 6
+    assert len(names) == len(set(names)) == (16 + 8 + 4 + 4 + 8 + 3 + 3 + 6
                                              + 3 + 1)
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
-                  "224x224 crops -> bfloat16"):
+                  "224x224 crops -> bfloat16", "scale 1 -> float32"):
         assert f"epilogue B=256 500x375 4:2:0 {label}" in names
+    assert "epilogue B=256 256x256 4:2:0 scale 1 -> bfloat16 CLIP" in names
+    for size in ("B=256 224x224", "B=256 384x384", "B=64 512x512"):
+        assert f"epilogue {size} 4:2:0 scale 1 -> bfloat16" in names
     for m in (16384, 196608):
         for bits in (8, 16):
             assert f"dequant 4:2:0 M={m} int{bits}" in names
@@ -49,9 +52,17 @@ def test_epilogue_and_dequantize_geometries_are_named():
     assert b * gh * gw == 196608
     assert gh == -(-height // mode.mcu_px_h)
     assert gw == -(-width // mode.mcu_px_w)
-    for _, scale, dtype_name, crop in A.EPILOGUE_GEOMETRIES:
+    # The loader cell's batch: 256 images of 16 x 16 MCUs covering 256x256.
+    lb, lgh, lgw, lheight, lwidth = A.LOADER_BATCH
+    assert (lb, lheight, lwidth) == (256, 256, 256)
+    for _, sgh, sgw, sheight, swidth in (A.LOADER_BATCH,) + A.SQUARE_BATCHES:
+        assert sgh == -(-sheight // mode.mcu_px_h)
+        assert sgw == -(-swidth // mode.mcu_px_w)
+    for _, batch, scale, dtype_name, crop, stats in A.EPILOGUE_GEOMETRIES:
+        assert batch in (A.BATCH, A.LOADER_BATCH) + A.SQUARE_BATCHES
         assert scale in (1, 2, 4, 8)
         assert dtype_name is None or hasattr(torch, dtype_name)
+        assert stats in (A.IMAGENET_NORM, A.CLIP_NORM)
         if crop:
             assert crop[0] <= height // scale and crop[1] <= width // scale
 
@@ -62,7 +73,7 @@ def test_idct_and_colour_geometries_are_named_and_ordered():
     IDCT before the colour stage."""
     names = A.geometry_names()
     assert A.IDCT_GEOMETRIES == A.COLOR_GEOMETRIES == (16384, 196608)
-    assert names[16 + 3 + 4:16 + 3 + 4 + 4] == [
+    assert names[16 + 8 + 4:16 + 8 + 4 + 4] == [
         "idct 4:2:0 M=16384 int16", "color 4:2:0 M=16384 int16",
         "idct 4:2:0 M=196608 int16", "color 4:2:0 M=196608 int16"]
     assert A.stage_geometries() == [("idct", 16384), ("color", 16384),
@@ -88,6 +99,9 @@ def _named_runs(us_by_name, digests=None):
 @pytest.mark.parametrize("name", [
     "epilogue B=256 500x375 4:2:0 scale 1 -> uint8",
     "epilogue B=256 500x375 4:2:0 224x224 crops -> bfloat16",
+    "epilogue B=256 500x375 4:2:0 scale 1 -> float32",
+    "epilogue B=256 256x256 4:2:0 scale 1 -> bfloat16 CLIP",
+    "epilogue B=256 224x224 4:2:0 scale 1 -> bfloat16",
     "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8",
     "idct 4:2:0 M=16384 int16", "idct 4:2:0 M=196608 int16",
     "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16",
@@ -179,7 +193,7 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     names = A.geometry_names()
     scaled = [A.scaled_name(*g) for g in A.SCALED_GEOMETRIES]
     stacked = [A.stacked_name(m, w) for m, w in A.STACKED_GEOMETRIES]
-    start = 16 + 3 + 4 + 4
+    start = 16 + 8 + 4 + 4
     assert names[start:start + 11] == scaled + stacked
     assert names[start + 11:] == (
         [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]

@@ -197,8 +197,10 @@ def test_raster_epilogue_reference_matches_jax(mode_key, scale):
 
 
 # Where the CUDA epilogue branches: one MCU column, a ragged 32-column
-# chunk, a chunk loop with unaligned runs.
-BAND_GWS = (1, 17, 33)
+# chunk, a chunk loop with unaligned runs (its banded form); bands of two
+# and four whole MCU rows (its row form, R = 32 // gw MCU rows a band), and
+# widths whose runs of 28, 24 and 31 MCUs it leaves to the banded form.
+BAND_GWS = (1, 17, 33, 16, 8, 14, 24, 31)
 BAND_WIDTHS = ("one", "odd", "full")
 
 
@@ -210,8 +212,8 @@ BAND_WIDTHS = ("one", "odd", "full")
 def test_raster_epilogue_reference_matches_jax_at_band_edges(mode_key, scale,
                                                              gw, width):
     """The plain epilogue (the oracle of the CUDA kernel on the card)
-    against the JAX package where the kernel's band design branches: B = 1,
-    ``gw`` of 1, 17 and 33 MCU columns, an output 1, an odd number and the
+    against the JAX package where the kernel's two forms branch: B = 1,
+    ``gw`` of ``BAND_GWS`` MCU columns, an output 1, an odd number and the
     full grid wide, and crop origins that ``dynamic_slice`` clamps
     (negative, past the far edge, and exactly at both edges).  Tolerance
     0."""

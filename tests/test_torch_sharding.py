@@ -506,7 +506,8 @@ def test_kernel_attributes_are_prepared_per_device():
             for n, src in sources.items()}
     assert uses == {**{n: 0 for n in sources}, "decode_kernel.cu": 1,
                     "kernel_opt.cu": 2, "mxu_idct.cu": 1,
-                    "stage_kernels.cu": 2, "vlc.cu": 1}
+                    "raster_epilogue.cu": 1, "stage_kernels.cu": 2,
+                    "vlc.cu": 1}
     assert "cudaGetDevice(&device)" in sources["decode_tile.cuh"]
     assert len(re.findall(r"cudaFuncSetAttribute\(",
                           "".join(sources.values()))) == 4
