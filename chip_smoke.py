@@ -22,7 +22,9 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    and where its two forms branch (``epilogue_band_cases``: MCU columns
    of ``BAND_GWS``, outputs 1 to the full grid wide, B = 1, crop origins
    at and past every edge, the B=256 ImageNet geometry in all four types,
-   the loader cell's B=256 256x256 bfloat16 batch in the row form);
+   the loader cell's B=256 256x256 bfloat16 batch in the row form, the
+   crop cell's two groups written through destination rows into one
+   B=256 output);
    the dequantize stage at the M values of ``DEQUANT_MS`` with wire-limit
    coefficients and out-of-range ``qidx`` (``dequant_cases``);
    the memory-floor, chroma-truerez and stacked kernels
@@ -63,10 +65,16 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    scale 1 and 2, as uint8 and as bfloat16 normalised with the ImageNet
    statistics, every batch equal to the oracle rasters;
    ``decode_batch_crops`` of 224x224 random crops from 4:2:0 images of
-   three sizes, equal to slices of the oracle rasters; every path that
+   three sizes, equal to slices of the oracle rasters; the crop cell's
+   batches (B=256 224x224 crops, 1 in 8 at 4:4:4 among 4:2:0, through
+   ``iter_decode_batch_crops(mixed_sizes=True)`` in bfloat16 with the
+   ImageNet statistics and ``decode_batch_crops`` in uint8), equal to the
+   oracle slices, with two decode and two epilogue launches a batch and
+   none in the row form; every path that
    takes a device list over two shards of the one card (``[3 multi]``:
    the engine on both transports, the single-image APIs, the B=256
-   batches and the crop batch, each equal to the oracle or to one device,
+   batches, the crop batch and a mixed-mode crop batch, each equal to the
+   oracle or to one device,
    every shard launching), with the engine's MP/s and the batch path's
    images/s against one device, the host concatenation of two shards
    against their D2H, and two gloo ranks of ``tools.scaling_bench``; the
@@ -806,7 +814,9 @@ def epilogue_cases(torch, dev, rng, max_err) -> int:
     """raster_epilogue against its plain version: B=5 images of 13x17
     MCUs (the last MCU row and column cut by the output size), and crops
     with random origins, some out of range (clamped as dynamic_slice
-    clamps)."""
+    clamps), also written through destination rows (shuffled, one of
+    them outside) into a shared output of 7 images filled beforehand;
+    then the crop cell's batch (:func:`crop_cell_epilogue_case`)."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
@@ -845,7 +855,67 @@ def epilogue_cases(torch, dev, rng, max_err) -> int:
                              f"{'crop' if len(args) > 2 else 'full'} "
                              f"max|err|={err}")
                     cases += 1
-    return cases
+                rows = torch.from_numpy(np.append(
+                    rng.permutation(7)[:b - 1], -1).astype(np.int32)).to(dev)
+                fill = torch.full((7, crop_h, crop_w, 3), 77,
+                                  dtype=dtype or torch.uint8, device=dev)
+                got = raster_epilogue(raw, mode, scale, b, gh, gw, crop_h,
+                                      crop_w, *offsets, norm=norm, rows=rows,
+                                      out=fill.clone())
+                want = raster_epilogue_reference(
+                    raw, mode, scale, b, gh, gw, crop_h, crop_w, *offsets,
+                    norm=norm, rows=rows, out=fill.clone())
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"raster epilogue with destination rows != plain "
+                         f"version: {mode.name} scale {scale} {dtype}")
+                cases += 1
+    return cases + crop_cell_epilogue_case(torch, dev, rng)
+
+
+# The batch of perfbench's loader-imagenet-crops cell: 224x224 crops, 224
+# images of 4:2:0 on 15x15-MCU sub-grids and 32 of 4:4:4 on 29x29, in
+# bfloat16 with the ImageNet statistics.
+CROP_CELL = (((2, 2, 3), 224, 15), ((1, 1, 3), 32, 29))
+
+
+def crop_cell_epilogue_case(torch, dev, rng) -> int:
+    """raster_epilogue against its plain version at the crop cell's two
+    geometries, each group written through its destination rows (a
+    shuffle of 0..255) into one output of 256 images, origins drawn over
+    each sub-grid's slack."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        raster_epilogue, raster_epilogue_reference)
+
+    norm = _norm_static(torch.bfloat16, **IMAGENET_NORM)
+    batch = sum(b for _, b, _ in CROP_CELL)
+    got = torch.full((batch, 224, 224, 3), 77, dtype=torch.bfloat16,
+                     device=dev)
+    want = got.clone()
+    rows = rng.permutation(batch).astype(np.int32)
+    at = 0
+    for key, b, g in CROP_CELL:
+        mode = S.mode_for(key)
+        raw = torch.from_numpy(rng.integers(
+            0, 256, (3, mode.luma_slots, 64, b * g * g),
+            dtype=np.uint8)).to(dev)
+        offsets = [torch.from_numpy(rng.integers(
+            0, g * 8 * f - 224 + 1, b).astype(np.int32)).to(dev)
+            for f in (mode.v, mode.h)]
+        dst = torch.from_numpy(rows[at:at + b]).to(dev)
+        at += b
+        got = raster_epilogue(raw, mode, 1, b, g, g, 224, 224, *offsets,
+                              norm=norm, rows=dst, out=got)
+        want = raster_epilogue_reference(raw, mode, 1, b, g, g, 224, 224,
+                                         *offsets, norm=norm, rows=dst,
+                                         out=want)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("raster epilogue at the crop cell's geometries (4:2:0 B=224 "
+             "15x15, 4:4:4 B=32 29x29, rows into 256) != plain version")
+    return 1
 
 
 # MCU columns per image where the epilogue's two forms branch.  Banded
@@ -1310,6 +1380,25 @@ def imagenet_batches(rng, blobs, batches: int = 4, size: int = 256):
             for _ in range(batches)]
 
 
+def mixed_crop_batch(rng, mixed, size: int = 256):
+    """A batch of the crop cell's mix from ``mixed`` (mode name -> list of
+    ``(blob, oracle raster)``): ``size // 8`` images of 4:4:4 at random
+    positions, the rest 4:2:0, each with a 224x224 crop at a uniform random
+    origin.  Returns the blobs, the origins and the oracle's crops."""
+    four = np.zeros(size, bool)
+    four[rng.permutation(size)[:size // 8]] = True
+    blobs, boxes, want = [], [], []
+    for k in range(size):
+        pool = mixed["4:4:4" if four[k] else "4:2:0"]
+        blob, raster = pool[int(rng.integers(0, len(pool)))]
+        y0 = int(rng.integers(0, raster.shape[0] - 224 + 1))
+        x0 = int(rng.integers(0, raster.shape[1] - 224 + 1))
+        blobs.append(blob)
+        boxes.append((y0, x0))
+        want.append(raster[y0:y0 + 224, x0:x0 + 224])
+    return blobs, boxes, np.stack(want)
+
+
 BATCH_CONFIGS = ((1, None), (1, "bfloat16"), (2, None), (2, "bfloat16"))
 
 
@@ -1329,7 +1418,7 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
     crop batch; each equal to the oracle (bfloat16: the oracle through the
     plain normalisation).  Returns the launch counts of the batch run."""
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
-        decode_batch_crops, iter_decode_batches)
+        decode_batch_crops, iter_decode_batch_crops, iter_decode_batches)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         apply_norm, launch_counts, reset_launch_counts)
 
@@ -1365,7 +1454,7 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
           f"raster={counts['raster']} (row form {counts['raster_rows']}) "
           f"plain_on_cuda={counts['plain_on_cuda']}", flush=True)
 
-    crop_blobs, crop_refs = crop_set
+    crop_blobs, crop_refs, mixed = crop_set
     reset_launch_counts()
     for scale, dtype_name in ((1, None), (2, "bfloat16")):
         boxes = [(scale * int(rng.integers(0, (r.shape[0] - 224) // scale
@@ -1393,6 +1482,39 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
           f"rgb={crop_counts['rgb']} rgb_scaled={crop_counts['rgb_scaled']} "
           f"raster={crop_counts['raster']} plain_on_cuda="
           f"{crop_counts['plain_on_cuda']}", flush=True)
+
+    # The crop cell's path: two batches through the iterator in bfloat16
+    # with the ImageNet statistics, one through decode_batch_crops in
+    # uint8; each batch one decode launch and one epilogue a mode.
+    batches = [mixed_crop_batch(rng, mixed) for _ in range(3)]
+    kw, norm = batch_options(torch, "bfloat16")
+    reset_launch_counts()
+    stream = iter_decode_batch_crops(
+        ((b, x) for b, x, _ in batches[:2]), (224, 224), device=dev,
+        mixed_sizes=True, prefetch=2, **kw)
+    outs = [(out, norm) for out, _ in stream]
+    outs.append((decode_batch_crops(*batches[2][:2], (224, 224),
+                                    device=dev)[0], None))
+    for (out, nm), (_, _, want) in zip(outs, batches):
+        if not torch.equal(out, apply_norm(torch.from_numpy(want).to(dev),
+                                           nm)):
+            fail(f"mixed-mode crop batch ({out.dtype}) != oracle slices")
+    mixed_counts = launch_counts()
+    want_counts = {"rgb": 2 * len(batches), "raster": 2 * len(batches),
+                   "rgb_scaled": 0, "raster_rows": 0, "plain_on_cuda": 0}
+    if any(mixed_counts[k] != v for k, v in want_counts.items()):
+        fail(f"mixed-mode crop batches: launches {mixed_counts}, expected "
+             f"{want_counts}")
+    sizes = {m: sorted({r.shape[:2] for _, r in pool})
+             for m, pool in mixed.items()}
+    print(f"[3 slice] the crop cell's batches: {len(batches)} x B=256 "
+          f"224x224 crops of 4:2:0 {sizes['4:2:0']} and, 1 in 8, 4:4:4 "
+          f"{sizes['4:4:4']}, two through iter_decode_batch_crops(mixed_sizes=True) in "
+          f"bfloat16-normalised, one through decode_batch_crops in uint8: "
+          f"== oracle slices; launches rgb={mixed_counts['rgb']} raster="
+          f"{mixed_counts['raster']} (row form "
+          f"{mixed_counts['raster_rows']}) plain_on_cuda="
+          f"{mixed_counts['plain_on_cuda']}", flush=True)
     return counts
 
 
@@ -1589,7 +1711,7 @@ def phase_multi(torch, dev, devices, card: str, root: str, tmp: str, paths,
     from pim_jpeg_decoder_tpu_torch.io.bmp import read_bmp
     from pim_jpeg_decoder_tpu_torch.models import pipeline as P
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
-        decode_batch_crops, iter_decode_batches)
+        _groups, decode_batch_crops, iter_decode_batches)
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
         apply_norm, launch_counts, reset_launch_counts)
     from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
@@ -1686,7 +1808,7 @@ def phase_multi(torch, dev, devices, card: str, root: str, tmp: str, paths,
           f"{counts['raster']} plain_on_cuda={counts['plain_on_cuda']} ({n} "
           f"groups a batch)", flush=True)
 
-    crop_blobs, crop_refs = crop_set
+    crop_blobs, crop_refs, mixed = crop_set
     boxes = [(2 * int(rng.integers(0, (r.shape[0] - 224) // 2 + 1)),
               2 * int(rng.integers(0, (r.shape[1] - 224) // 2 + 1)))
              for r in crop_refs[1]]
@@ -1708,6 +1830,30 @@ def phase_multi(torch, dev, devices, card: str, root: str, tmp: str, paths,
           f"{len(crop_blobs)} images, scale 1 uint8 and 2 bfloat16: == one "
           f"device; launches raster={counts['raster']} ({n} + 1 a "
           f"configuration)", flush=True)
+
+    # The crop cell's mixed-mode batch: each device's images are written
+    # into the rows of its own output, counted from its first image.
+    blobs_m, boxes_m, _ = mixed_crop_batch(rng, mixed)
+    kw, _ = batch_options(torch, "bfloat16")
+    reset_launch_counts()
+    got, headers = decode_batch_crops(blobs_m, boxes_m, (224, 224),
+                                      device=two, **kw)
+    want, _ = decode_batch_crops(blobs_m, boxes_m, (224, 224), device=dev,
+                                 **kw)
+    if not torch.equal(got, want):
+        fail("two-shard mixed-mode decode_batch_crops != one device")
+    # A launch a mode present on each device, and two for the one device.
+    launches = 2 + sum(len({headers[i].mode_key for i in range(b0, b1)})
+                       for b0, b1 in _groups(len(blobs_m), n))
+    counts = launch_counts()
+    if (counts["rgb"] != launches or counts["raster"] != launches
+            or counts["plain_on_cuda"]):
+        fail(f"two-shard mixed-mode crops: launches {counts}, {launches} "
+             f"rgb and raster expected")
+    print(f"[3 multi] decode_batch_crops on [{names}], the crop cell's "
+          f"B=256 mix of 4:2:0 and 4:4:4, bfloat16-normalised: == one "
+          f"device; launches rgb={counts['rgb']} raster={counts['raster']}",
+          flush=True)
 
     one_rates, one_rep = engine_mps(torch, DecodeEngine(device=dev), paths)
     two_rates, two_rep = engine_mps(torch, DecodeEngine(device=two), paths)
@@ -2635,7 +2781,7 @@ def batch_inputs(torch, dev, blobs, rng, count: int = 10):
     for idx in imagenet_batches(rng, blobs, batches=2):
         staged = _host_stage([blobs[i] for i in idx], 8, "auto",
                              "chip_smoke", 1, False)
-        staged_bufs.append([t.to(dev) for t in staged.arrays])
+        staged_bufs.append([t.to(dev) for t in staged.launches[0].arrays])
     per_image = staged.headers[0].num_mcus
     bufs = []
     for i in range(count):
@@ -2659,7 +2805,8 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
 
     rng = np.random.default_rng(SEED + 4)
     bufs, st = batch_inputs(torch, dev, blobs, rng)
-    mode, m_full = st.mode, bufs[0][0].shape[0]
+    (ln,) = st.launches
+    mode, m_full = ln.mode, bufs[0][0].shape[0]
     batch = len(st.headers)
     for m in (m_full, 16384):
         sub = [(c[:m], q[:m], qp) for c, q, qp in bufs]
@@ -2685,7 +2832,7 @@ def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
         raws = [decode_mcus(*b, mode, raw=True, scale=scale) for b in bufs]
         _, norm = batch_options(torch, dtype_name)
         out_h, out_w = crop or (-(-h0.height // scale), -(-h0.width // scale))
-        args = (mode, scale, batch, st.gh, st.gw, out_h, out_w)
+        args = (mode, scale, batch, ln.gh, ln.gw, out_h, out_w)
         if crop:
             args += crop_origins(torch, rng, batch, scale,
                                  (h0.height, h0.width), crop, dev)
@@ -3016,14 +3163,19 @@ def main(argv=None) -> int:
             if header.mode_key not in seen and header.num_mcus < 10000:
                 seen.add(header.mode_key)
                 oracle_images.append((header, coeffs, blobs[p]))
-        # The ImageNet-like photos (the corpus's first 32), and every
-        # 4:2:0 image for the crop batch.
+        # The ImageNet-like photos (the corpus's first 32), every 4:2:0
+        # image for the crop batch, and every 4:2:0 and 4:4:4 image for
+        # the crop cell's mixed batches.
         imagenet = paths[:CORPUS[0][0]]
         crop_paths = [p for p, kw in zip(paths, corpus_kwargs())
                       if kw.get("sampling") == "4:2:0"]
+        mixed = {m: [(blobs[p], oracles[p])
+                     for p, kw in zip(paths, corpus_kwargs())
+                     if kw.get("sampling") == m]
+                 for m in ("4:2:0", "4:4:4")}
         crop_set = ([blobs[p] for p in crop_paths],
                     {1: [oracles[p] for p in crop_paths],
-                     2: [scaled_oracles[p] for p in crop_paths]})
+                     2: [scaled_oracles[p] for p in crop_paths]}, mixed)
         dev = torch.device("cuda", 0)
         if args.cards:
             return cards_only(torch, dev, card, root, tmp, paths, oracles,

@@ -14,7 +14,10 @@
 // at b*gh*gw.  Output element (b, y, x, c) reads the pixel at (oy[b] + y,
 // ox[b] + x) of image b's MCU grid (offsets read as dynamic_slice reads
 // them: a negative one counts from the far end, then all are clamped into
-// the grid; none for a full batch).  It writes u8 unchanged, or float32,
+// the grid; none for a full batch).  With destination rows, image b is
+// written as image dst[b] of an output of out_batch images, which every
+// launch of a batch that mixes sampling modes shares (a row outside it is
+// not written); without, as image b.  It writes u8 unchanged, or float32,
 // bfloat16 or float16 as (x - mean[c]) * inv_std[c] computed in float32
 // and rounded to the output type last (round to nearest even), which is
 // what XLA and PyTorch compute for the same constants.
@@ -74,8 +77,8 @@
 //     float32, 12%; 256x256 at scale 2, 11%) it needs word and byte
 //     staging stores and per-element band ends, left out here (PERF.md).
 //
-// The banded form (ROWS = false): crops, and every full batch the row form
-// does not take.
+// The banded form (ROWS = false): crops, launches with destination rows,
+// and every full batch the row form does not take.
 //   - a CUDA block owns a band of one image: one MCU row (v*n output rows)
 //     by CHUNK = 32 consecutive MCU columns.  In the input the chunk's MCUs
 //     are 32 contiguous bytes for every (channel, slot, pixel), so the band
@@ -94,7 +97,8 @@
 //     n rows, so that the pixel column wx moves a byte read by 4 banks.
 //     Measured on an H100 against ROW_PAD = 0 in one call it is worth 2% on
 //     224x224 crops;
-//   - the block decodes its image, MCU row, chunk and crop origin once;
+//   - the block decodes its image, MCU row, chunk, crop origin and
+//     destination row once;
 //     n and h are template parameters, so the per-pixel index arithmetic is
 //     shifts and masks.  No division remains per element.
 // Writing the raster straight from the decode kernel's store is the other
@@ -127,6 +131,7 @@ struct Geometry {
   int rows, chunks;     // banded form: bands per image (rows x chunks)
   int band_rows;        // row form: R, the MCU rows of a band; 0: banded
   int copy;             // row form: bytes per cp.async (16, 8 or 4)
+  int out_batch;        // images of the output (batch without dst rows)
 };
 
 struct Norm {
@@ -172,6 +177,7 @@ template <typename OutT, int N, int H>
 __device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
                                        const int32_t* __restrict__ oys,
                                        const int32_t* __restrict__ oxs,
+                                       const int32_t* __restrict__ dst_rows,
                                        const Geometry& g, const Norm& norm,
                                        OutT* __restrict__ out, uint8_t* band) {
   constexpr int NN = N * N, TW = H * N;
@@ -193,6 +199,11 @@ __device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
   if (oys != nullptr) {
     oy = crop_origin(__ldg(oys + b), g.gh * th, g.out_h);
     ox = crop_origin(__ldg(oxs + b), g.gw * TW, g.out_w);
+  }
+  int ob = b;   // the image's place in the output
+  if (dst_rows != nullptr) {
+    ob = __ldg(dst_rows + b);
+    if (ob < 0 || ob >= g.out_batch) return;
   }
   const int mrow = oy / th + j;
   const int mcu0 = ((ox >> TW_SHIFT) / CHUNK + k) * CHUNK;
@@ -259,9 +270,9 @@ __device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
     const int yi = static_cast<int>(it / ppr);
     const int p = static_cast<int>(it - yi * ppr);
     const int y = y_lo + yi;
-    // The row's segment starts at element 3*x_lo of output row (b, y).
+    // The row's segment starts at element 3*x_lo of output row (ob, y).
     const size_t seg_byte =
-        ((static_cast<size_t>(b) * g.out_h + y) * g.out_w + x_lo) * 3 * ELEM;
+        ((static_cast<size_t>(ob) * g.out_h + y) * g.out_w + x_lo) * 3 * ELEM;
     const int head = static_cast<int>(
         reinterpret_cast<uintptr_t>(out_bytes + seg_byte) % VEC);
     // Piece p: elements [e0, e0 + EPP) of the segment (e0 < 0: the piece
@@ -667,20 +678,21 @@ template <typename OutT, int N, int H, bool ROWS>
 __global__ void __launch_bounds__(THREADS)
 raster_epilogue_kernel(const uint8_t* __restrict__ raw,
                        const int32_t* __restrict__ oys,
-                       const int32_t* __restrict__ oxs, Geometry g, Norm norm,
-                       OutT* __restrict__ out) {
+                       const int32_t* __restrict__ oxs,
+                       const int32_t* __restrict__ dst_rows, Geometry g,
+                       Norm norm, OutT* __restrict__ out) {
   static_assert(!ROWS || (N == RN && H == RH), "the row form is 16 px wide");
   extern __shared__ __align__(16) uint8_t smem[];
   if constexpr (ROWS) {
     row_form<OutT>(raw, g, norm, out, smem);
   } else {
-    banded<OutT, N, H>(raw, oys, oxs, g, norm, out, smem);
+    banded<OutT, N, H>(raw, oys, oxs, dst_rows, g, norm, out, smem);
   }
 }
 
 template <typename OutT>
 using Kernel = void (*)(const uint8_t*, const int32_t*, const int32_t*,
-                        Geometry, Norm, OutT*);
+                        const int32_t*, Geometry, Norm, OutT*);
 
 template <typename OutT, int N>
 Kernel<OutT> kernel_for_h(int h) {
@@ -764,8 +776,8 @@ cudaError_t rows_prepared() {
 
 template <typename OutT>
 int launch(const void* raw, const void* oys, const void* oxs,
-           const Geometry& g, int h, int n, const Norm& norm, void* out,
-           cudaStream_t stream) {
+           const void* dst_rows, const Geometry& g, int h, int n,
+           const Norm& norm, void* out, cudaStream_t stream) {
   const auto* in = static_cast<const uint8_t*>(raw);
   auto* dst = static_cast<OutT*>(out);
   if (g.band_rows == 0) {
@@ -774,7 +786,8 @@ int launch(const void* raw, const void* oys, const void* oxs,
     const Kernel<OutT> kernel = kernel_for<OutT>(n, h);
     kernel<<<blocks, THREADS, band_bytes(g.v, h, n), stream>>>(
         in, static_cast<const int32_t*>(oys),
-        static_cast<const int32_t*>(oxs), g, norm, dst);
+        static_cast<const int32_t*>(oxs),
+        static_cast<const int32_t*>(dst_rows), g, norm, dst);
     return static_cast<int>(cudaGetLastError());
   }
   const cudaError_t e = rows_prepared<OutT>();
@@ -783,8 +796,8 @@ int launch(const void* raw, const void* oys, const void* oxs,
       (static_cast<long long>(g.batch) * g.gh + g.band_rows - 1) /
       g.band_rows);
   const Kernel<OutT> kernel = rows_kernel<OutT>();
-  kernel<<<bands, THREADS, rows_bytes(g.v), stream>>>(in, nullptr, nullptr,
-                                                      g, norm, dst);
+  kernel<<<bands, THREADS, rows_bytes(g.v), stream>>>(
+      in, nullptr, nullptr, nullptr, g, norm, dst);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -823,16 +836,21 @@ int occupancy_of(int v, int h, int n, int out_kind, bool rows, int* blocks,
 
 // C entry point (bound with ctypes).  out_kind: 0 u8 (mean/inv_std unused),
 // 1 float32, 2 bfloat16, 3 float16.  oys/oxs: int32 [batch] device arrays,
-// or both null for a full batch.  Launches on `stream`, allocates nothing,
-// returns cudaGetLastError() after the launch (0 = launched).
+// or both null for a full batch.  dst_rows: int32 [batch] device array of
+// each image's place in an output of out_batch images, or null (out holds
+// the batch in order; out_batch is then not read).  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int pjt_cuda_raster_epilogue(
     const void* raw, long long num_mcus, int v, int h, int n, int batch,
     int gh, int gw, int out_h, int out_w, const void* oys, const void* oxs,
-    int out_kind, float mean0, float mean1, float mean2, float inv0,
-    float inv1, float inv2, void* out, void* stream) {
-  if (batch <= 0 || out_h <= 0 || out_w <= 0 || !supported(v, h, n) ||
-      (oys == nullptr) != (oxs == nullptr) || out_h > gh * v * n ||
-      out_w > gw * h * n ||
+    const void* dst_rows, int out_batch, int out_kind, float mean0,
+    float mean1, float mean2, float inv0, float inv1, float inv2, void* out,
+    void* stream) {
+  if (dst_rows == nullptr) out_batch = batch;
+  if (batch <= 0 || out_batch <= 0 || out_h <= 0 || out_w <= 0 ||
+      !supported(v, h, n) || (oys == nullptr) != (oxs == nullptr) ||
+      out_h > gh * v * n || out_w > gw * h * n ||
       static_cast<long long>(batch) * gh * gw > num_mcus) {
     return cudaErrorInvalidValue;
   }
@@ -848,26 +866,28 @@ extern "C" int pjt_cuda_raster_epilogue(
   if (static_cast<long long>(batch) * rows * chunks > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  const int copy = rows_copy(raw, num_mcus, h, n, gw, out_w, crop, out);
-  const Geometry g{num_mcus, v,      batch, gh, gw, out_h, out_w,
-                   rows,     chunks, copy ? CHUNK / gw : 0, copy};
+  const int copy = rows_copy(raw, num_mcus, h, n, gw, out_w,
+                             crop || dst_rows != nullptr, out);
+  const Geometry g{num_mcus, v,      batch, gh, gw, out_h, out_w, rows,
+                   chunks,   copy ? CHUNK / gw : 0, copy, out_batch};
   const Norm norm{{mean0, mean1, mean2}, {inv0, inv1, inv2}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_kind) {
     case 0:
-      return launch<uint8_t>(raw, oys, oxs, g, h, n, norm, out, s);
+      return launch<uint8_t>(raw, oys, oxs, dst_rows, g, h, n, norm, out, s);
     case 1:
-      return launch<float>(raw, oys, oxs, g, h, n, norm, out, s);
+      return launch<float>(raw, oys, oxs, dst_rows, g, h, n, norm, out, s);
     case 2:
-      return launch<__nv_bfloat16>(raw, oys, oxs, g, h, n, norm, out, s);
+      return launch<__nv_bfloat16>(raw, oys, oxs, dst_rows, g, h, n, norm,
+                                   out, s);
     case 3:
-      return launch<__half>(raw, oys, oxs, g, h, n, norm, out, s);
+      return launch<__half>(raw, oys, oxs, dst_rows, g, h, n, norm, out, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // 1 when pjt_cuda_raster_epilogue takes the row form for these arguments
-// (crop: oys/oxs given), else 0.
+// (crop: oys/oxs or dst_rows given), else 0.
 extern "C" int pjt_cuda_raster_rows(const void* raw, long long num_mcus,
                                     int h, int n, int gw, int out_w, int crop,
                                     const void* out) {

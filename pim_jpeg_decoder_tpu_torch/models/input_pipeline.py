@@ -19,11 +19,19 @@ and gets back nothing.
                                     normalisation in one pass) ->
                                     ``[B, H, W, 3]`` on the device
 
+A crop batch whose images mix sampling modes (``decode_batch_crops``,
+``iter_decode_batch_crops(mixed_sizes=True)``; the JAX package refuses
+such a batch) is staged as one launch a mode, in the order the modes first
+appear: each has its own covering MCU sub-grid and transport, its own
+decode kernel and its own raster epilogue, which writes its images into
+their rows of the one output tensor (no copy pass).  A batch of one mode
+is one launch, as in the JAX package.
+
 ``device`` may be a list of devices (the JAX package's ``mesh=``): the
 batch splits into one contiguous group of whole images per device (sizes
 differ by at most one; a device left without an image is skipped), each
-device runs the H2D copy, the decode kernel and the raster epilogue on its
-group, and the groups come to ``devices[0]``, where one ``torch.cat``
+device runs the H2D copy, the decode kernels and the raster epilogues on
+its group, and the groups come to ``devices[0]``, where one ``torch.cat``
 makes the result.  It equals the one-device result element for element.
 The JAX package returns one array sharded over the batch axis; PyTorch
 has no tensor sharded over devices, so the result lies whole on
@@ -144,17 +152,13 @@ def _scan_same_size(blobs: Sequence[bytes], caller: str):
     return headers, h0, S.mode_for(h0.mode_key)
 
 
-def _scan_same_mode(blobs: Sequence[bytes], caller: str):
-    """Parse headers and enforce an identical sampling MODE (dimensions
-    free: the mixed-size crop path's contract)."""
-    headers = [scan_jpeg(b) for b in blobs]
-    h0 = headers[0]
-    for h in headers[1:]:
-        if h.mode_key != h0.mode_key:
-            raise JpegError(
-                f"{caller} requires identical sampling modes: "
-                f"{h.mode_key} != {h0.mode_key}")
-    return headers, h0, S.mode_for(h0.mode_key)
+def _mode_groups(headers: Sequence[JpegHeader]) -> List[np.ndarray]:
+    """Input positions of a batch's images by sampling mode: each group in
+    input order, the groups in the order their modes first appear."""
+    groups: Dict[Tuple[int, int, int], List[int]] = {}
+    for i, h in enumerate(headers):
+        groups.setdefault(h.mode_key, []).append(i)
+    return [np.asarray(g, np.int64) for g in groups.values()]
 
 
 _PREP_POOLS: Dict[int, ThreadPoolExecutor] = {}
@@ -198,16 +202,35 @@ def _tstage(timers, name: str, **how):
     return timers.stage(name, **how)
 
 
+def _tcount(timers, name: str, n: int) -> None:
+    """``timers.count(name, n)``, or nothing when no timers were passed."""
+    if timers is not None:
+        timers.count(name, n)
+
+
+@dataclasses.dataclass
+class _Launch:
+    """One decode launch of a batch: images of one sampling mode, their
+    transport tensors (page-locked when bound for a card) and the MCU
+    sub-grid each has in the transport."""
+    mode: S.ModeSpec
+    # coeffs [M, g, 64], qidx, qpool[, oys, oxs[, positions]]: int32
+    # positions of its images in the batch, where the batch has more than
+    # one launch (each device's output rows count from its first image).
+    arrays: List[torch.Tensor]
+    gh: int
+    gw: int
+    # Input positions of its images, ascending; None: the whole batch.
+    index: Optional[np.ndarray] = None
+
+
 @dataclasses.dataclass
 class _Staged:
-    """Host half of one batch: transport tensors (page-locked when bound
-    for a card) and the geometry the raster epilogue needs."""
+    """Host half of one batch: its launches, one a sampling mode, and the
+    output pixels per image."""
     headers: List[JpegHeader]
-    mode: S.ModeSpec
-    arrays: List[torch.Tensor]  # coeffs [M, g, 64], qidx, qpool[, oys, oxs]
-    gh: int                     # MCU grid per image in the transport
-    gw: int
-    out_h: int                  # output pixels per image
+    launches: List[_Launch]
+    out_h: int
     out_w: int
 
 
@@ -248,7 +271,7 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
             qidx[i * per_img:(i + 1) * per_img] = i
         arrays = _transport((coeffs, qidx, build_qpool(headers, mode)),
                             wire, pin)
-    return _Staged(headers, mode, arrays, h0.mcu_rows, h0.mcu_cols,
+    return _Staged(headers, [_Launch(mode, arrays, h0.mcu_rows, h0.mcu_cols)],
                    -(-h0.height // scale), -(-h0.width // scale))
 
 
@@ -256,14 +279,17 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                       prepare_threads: int, wire: str, caller: str,
                       same_size: bool, pin: bool, timers=None) -> _Staged:
     """Host half of a crop-batch decode (validation + scan + entropy +
-    per-crop sub-grid staging + wire compaction).  ``timers`` as in
-    :func:`_host_stage`.
+    per-crop sub-grid staging + wire compaction), one launch a sampling
+    mode.  ``timers`` as in :func:`_host_stage`, with the sub-grid copy as
+    stage ``crop_gather`` and the counters ``crop.mcus_decoded`` (MCUs
+    entropy-decoded), ``crop.mcus_shipped`` (MCUs in the transport) and
+    ``crop.mode_groups`` (launches).
 
-    Each crop's covering MCU sub-grid has a fixed size (+1 MCU of slack
-    for any sub-MCU alignment, the origin clamped to keep it inside the
-    LARGEST image), so ``same_size=False`` admits mixed image dimensions:
-    images with a smaller grid zero-pad the tail, which the validated crop
-    box never reaches."""
+    Each crop's covering MCU sub-grid has a fixed size within a launch (+1
+    MCU of slack for any sub-MCU alignment, the origin clamped to keep it
+    inside the launch's LARGEST image), so ``same_size=False`` admits mixed
+    image dimensions: images with a smaller grid zero-pad the tail, which
+    the validated crop box never reaches."""
     _check_wire(wire)
     _check_scale(scale)
     if not blobs:
@@ -283,9 +309,11 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                 f"{bad[:3]})")
     with _tstage(timers, "scan", cpu=True):
         if same_size:
-            headers, h0, mode = _scan_same_size(blobs, caller)
+            headers = _scan_same_size(blobs, caller)[0]
         else:
-            headers, h0, mode = _scan_same_mode(blobs, caller)
+            headers = [scan_jpeg(b) for b in blobs]
+        groups = [(S.mode_for(headers[idx[0]].mode_key), idx)
+                  for idx in _mode_groups(headers)]
     for h, (y0, x0) in zip(headers, boxes):
         if not (0 <= y0 and 0 <= x0 and y0 + crop_h <= h.height
                 and x0 + crop_w <= h.width):
@@ -293,69 +321,114 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                 f"crop [{y0}:{y0 + crop_h}, {x0}:{x0 + crop_w}] outside "
                 f"{h.height}x{h.width}")
 
-    px_h, px_w = mode.mcu_px_h, mode.mcu_px_w
-    gh_c = min(max(h.mcu_rows for h in headers), -(-crop_h // px_h) + 1)
-    gw_c = min(max(h.mcu_cols for h in headers), -(-crop_w // px_w) + 1)
-    batch = len(blobs)
-    per_img = gh_c * gw_c
     with _tstage(timers, "entropy"):
         decoded = _entropy_decode_pool(headers, prepare_threads)
+    # Per launch: (mode, positions, sub-grid rows and columns, transport).
+    plans = []
     with _tstage(timers, "stage", cpu=True):
-        coeffs = np.zeros((batch * per_img, mode.g, 64), np.int16)
-        qidx = np.zeros(batch * per_img, np.int32)
-        oys = np.zeros(batch, np.int32)
-        oxs = np.zeros(batch, np.int32)
-        for i, ((y0, x0), h, c) in enumerate(zip(boxes, headers, decoded)):
-            gh, gw = h.mcu_rows, h.mcu_cols
-            r0 = max(0, min(y0 // px_h, gh - gh_c))
-            c0 = max(0, min(x0 // px_w, gw - gw_c))
-            # Output-pixel offsets into the sub-grid (exact: px_h, px_w,
-            # y0 and x0 are multiples of scale).
-            oys[i] = (y0 - r0 * px_h) // scale
-            oxs[i] = (x0 - c0 * px_w) // scale
-            sub = c[: gh * gw].reshape(gh, gw, mode.g, 64)[r0:r0 + gh_c,
-                                                           c0:c0 + gw_c]
-            dst = coeffs[i * per_img:(i + 1) * per_img].reshape(
-                gh_c, gw_c, mode.g, 64)
-            dst[: sub.shape[0], : sub.shape[1]] = sub
-            qidx[i * per_img:(i + 1) * per_img] = i
-        arrays = _transport((coeffs, qidx, build_qpool(headers, mode), oys,
-                             oxs), wire, pin)
-    return _Staged(headers, mode, arrays, gh_c, gw_c, crop_h // scale,
-                   crop_w // scale)
+        for mode, idx in groups:
+            gh_c = min(max(headers[i].mcu_rows for i in idx),
+                       -(-crop_h // mode.mcu_px_h) + 1)
+            gw_c = min(max(headers[i].mcu_cols for i in idx),
+                       -(-crop_w // mode.mcu_px_w) + 1)
+            n = len(idx)
+            plans.append((mode, idx, gh_c, gw_c,
+                          np.zeros((n * gh_c * gw_c, mode.g, 64), np.int16),
+                          np.zeros(n, np.int32), np.zeros(n, np.int32)))
+    with _tstage(timers, "crop_gather"):
+        for mode, idx, gh_c, gw_c, coeffs, oys, oxs in plans:
+            px_h, px_w = mode.mcu_px_h, mode.mcu_px_w
+            per_img = gh_c * gw_c
+            for k, i in enumerate(idx):
+                (y0, x0), h = boxes[i], headers[i]
+                gh, gw = h.mcu_rows, h.mcu_cols
+                r0 = max(0, min(y0 // px_h, gh - gh_c))
+                c0 = max(0, min(x0 // px_w, gw - gw_c))
+                # Output-pixel offsets into the sub-grid (exact: px_h,
+                # px_w, y0 and x0 are multiples of scale).
+                oys[k] = (y0 - r0 * px_h) // scale
+                oxs[k] = (x0 - c0 * px_w) // scale
+                sub = decoded[i][: gh * gw].reshape(
+                    gh, gw, mode.g, 64)[r0:r0 + gh_c, c0:c0 + gw_c]
+                dst = coeffs[k * per_img:(k + 1) * per_img].reshape(
+                    gh_c, gw_c, mode.g, 64)
+                dst[: sub.shape[0], : sub.shape[1]] = sub
+    launches = []
+    with _tstage(timers, "stage", cpu=True):
+        for mode, idx, gh_c, gw_c, coeffs, oys, oxs in plans:
+            qidx = np.repeat(np.arange(len(idx), dtype=np.int32),
+                             gh_c * gw_c)
+            rows = [] if len(plans) == 1 else [idx.astype(np.int32)]
+            arrays = _transport(
+                (coeffs, qidx, build_qpool([headers[i] for i in idx], mode),
+                 oys, oxs, *rows), wire, pin)
+            launches.append(_Launch(mode, arrays, gh_c, gw_c,
+                                    idx if rows else None))
+    _tcount(timers, "crop.mcus_decoded", sum(h.num_mcus for h in headers))
+    _tcount(timers, "crop.mcus_shipped",
+            sum(len(idx) * gh_c * gw_c for _, idx, gh_c, gw_c, *_ in plans))
+    _tcount(timers, "crop.mode_groups", len(launches))
+    return _Staged(headers, launches, crop_h // scale, crop_w // scale)
 
 
 def _dispatch(staged: _Staged, scale: int, norm, devices, timers=None):
     """Device half (asynchronous): for each device's group of whole
     images, H2D on the device's side stream (its current stream waits on
-    the copy's event) + decode kernel + raster epilogue; then the groups
-    on ``devices[0]``, joined.  Every group gets the whole (small)
-    quantizer pool, so its ``qidx`` stays the batch's.  Nothing
+    the copy's event) + per launch a decode kernel and a raster epilogue;
+    then the groups on ``devices[0]``, joined.  Every group gets each
+    launch's whole (small) quantizer pool, so its ``qidx`` stays the
+    launch's.  A batch of several launches has its output made here, one
+    a device, and each epilogue writes its images into their rows of it
+    (their batch positions less the device's first image).  Nothing
     synchronises.  With ``timers``, a card's h2d stage is timed by CUDA
     events on the side stream around the copies, and its device stage by
     events on the launch stream around the kernels (host wall clock on
     the CPU); the ranges ``pjt.h2d`` and ``pjt.device`` cover this
     thread's enqueueing."""
-    coeffs, qidx, qpool, *offsets = staged.arrays
-    per_img = staged.gh * staged.gw
+    batch = len(staged.headers)
+    shared = any(ln.index is not None for ln in staged.launches)
     outs = []
-    for (b0, b1), dev in zip(_groups(len(staged.headers), len(devices)),
-                             devices):
+    for (b0, b1), dev in zip(_groups(batch, len(devices)), devices):
+        # Each launch's images in [b0, b1): one run of it (positions
+        # ascend).
+        parts = []
+        for ln in staged.launches:
+            i0, i1 = ((b0, b1) if ln.index is None
+                      else np.searchsorted(ln.index, (b0, b1)))
+            if i1 > i0:
+                parts.append((ln, int(i0), int(i1)))
         side = launch = None
         if timers is not None and dev.type == "cuda":
             side, launch = h2d_stream(dev), torch.cuda.current_stream(dev)
         with _tstage(timers, "h2d", stream=side):
-            group, ready = copy_to(
-                [coeffs[b0 * per_img:b1 * per_img],
-                 qidx[b0 * per_img:b1 * per_img], qpool,
-                 *(o[b0:b1] for o in offsets)], dev)
+            host = []
+            for ln, i0, i1 in parts:
+                coeffs, qidx, qpool, *per_image = ln.arrays
+                per_img = ln.gh * ln.gw
+                host += [coeffs[i0 * per_img:i1 * per_img],
+                         qidx[i0 * per_img:i1 * per_img], qpool,
+                         *(a[i0:i1] for a in per_image[:2])]
+                if shared:   # rows of this device's output
+                    host.append(per_image[2][i0:i1] - b0 if b0
+                                else per_image[2][i0:i1])
+            group, ready = copy_to(host, dev)
             adopt(group, ready, dev)
         with _tstage(timers, "device", stream=launch):
-            c, q, p, *offs = group
-            raw = decode_mcus(c, q, p, staged.mode, raw=True, scale=scale)
-            outs.append(raster_epilogue(
-                raw, staged.mode, scale, b1 - b0, staged.gh, staged.gw,
-                staged.out_h, staged.out_w, *offs, norm=norm))
+            out = None
+            if shared:
+                out = torch.empty((b1 - b0, staged.out_h, staged.out_w, 3),
+                                  dtype=norm[0] if norm else torch.uint8,
+                                  device=dev)
+            at = 0
+            for ln, i0, i1 in parts:
+                c, q, p, *offs = group[at:at + len(ln.arrays)]
+                at += len(ln.arrays)
+                raw = decode_mcus(c, q, p, ln.mode, raw=True, scale=scale)
+                out = raster_epilogue(
+                    raw, ln.mode, scale, i1 - i0, ln.gh, ln.gw,
+                    staged.out_h, staged.out_w, *offs[:2], norm=norm,
+                    rows=offs[2] if shared else None, out=out)
+            outs.append(out)
     if len(outs) == 1:
         return outs[0], staged.headers
     return gather(outs, axis=0, device=devices[0]), staged.headers
@@ -498,8 +571,11 @@ def decode_same_size_batch_crops(
     epilogue applies the per-image pixel offset; the pixels equal the same
     slice of a full (scaled) decode.  With ``scale`` != 1, crop origins
     and dims must be multiples of it.  All images must share dimensions
-    and sampling mode; ``dtype``/``mean``/``std``/``timers`` as in
-    :func:`decode_same_size_batch`.
+    and sampling mode; ``dtype``/``mean``/``std`` as in
+    :func:`decode_same_size_batch`, ``timers`` too, with the sub-grid copy
+    as stage ``crop_gather`` and the counters ``crop.mcus_decoded``,
+    ``crop.mcus_shipped`` and ``crop.mode_groups``
+    (``timers.counters()``).
     """
     norm = _norm_static(dtype, mean, std)
     devices = devices_of(device)
@@ -523,11 +599,19 @@ def decode_batch_crops(
     device="cuda",
     timers=None,
 ) -> Tuple[torch.Tensor, List[JpegHeader]]:
-    """Batched random-crop decode over MIXED-SIZE images (the sampling
-    mode must match): a fixed ``crop_hw`` means a fixed covering MCU
-    sub-grid, so the whole batch decodes in one launch.  Same
-    ``scale``/``dtype``/``mean``/``std``/``timers`` semantics as
-    :func:`decode_same_size_batch_crops`.
+    """Batched random-crop decode over images of MIXED SIZES and MIXED
+    SAMPLING MODES (every mode the port decodes: 4:2:0, 4:2:2, 4:4:0,
+    4:4:4, gray) -> ``[B, ch/scale, cw/scale, 3]`` in input order.
+
+    A fixed ``crop_hw`` means a fixed covering MCU sub-grid for each
+    mode, so the images of one mode decode in one launch whatever their
+    sizes: a batch of one mode is one decode kernel and one raster
+    epilogue.  A batch that mixes modes is grouped by mode (in the order
+    the modes first appear), one decode kernel and one epilogue a group,
+    each epilogue writing its images into their rows of the one output.
+    The JAX package's ``decode_batch_crops`` requires one mode; the port
+    goes beyond it here.  Same ``scale``/``dtype``/``mean``/``std``/
+    ``timers`` semantics as :func:`decode_same_size_batch_crops`.
     """
     norm = _norm_static(dtype, mean, std)
     devices = devices_of(device)
@@ -555,9 +639,11 @@ def iter_decode_batch_crops(
 
     ``crop_batches`` yields ``(blobs, boxes)`` pairs; each yields exactly
     what :func:`decode_same_size_batch_crops` (or, with
-    ``mixed_sizes=True``, :func:`decode_batch_crops`) returns for it,
-    while the host half of up to ``prefetch`` upcoming batches runs on
-    worker threads.  ``timers`` as in :func:`iter_decode_batches`.
+    ``mixed_sizes=True``, :func:`decode_batch_crops`: sizes and sampling
+    modes may then mix inside a batch, beyond what the JAX package
+    admits) returns for it, while the host half of up to ``prefetch``
+    upcoming batches runs on worker threads.  ``timers`` as in
+    :func:`iter_decode_batches` and :func:`decode_same_size_batch_crops`.
     """
     norm = _norm_static(dtype, mean, std)
     devices = devices_of(device)

@@ -127,8 +127,8 @@ def load() -> ctypes.CDLL:
                     (lib.pjt_cuda_decode_rgb_truerez, decode + [ptr]),
                     (lib.pjt_cuda_decode_rgb_stacked, decode + [ptr]),
                     (lib.pjt_cuda_raster_epilogue,
-                     [ptr, ctypes.c_int64] + [i32] * 8 + [ptr, ptr, i32]
-                     + [f32] * 6 + [ptr, ptr]),
+                     [ptr, ctypes.c_int64] + [i32] * 8
+                     + [ptr, ptr, ptr, i32, i32] + [f32] * 6 + [ptr, ptr]),
                     (lib.pjt_cuda_dequant_stage,
                      [ptr, i32, ptr, ptr, i32, ptr, ctypes.c_int64, i32,
                       ptr]),

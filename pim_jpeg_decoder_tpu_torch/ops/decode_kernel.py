@@ -20,8 +20,10 @@ inside each slot (index = px*n + py).
 
 :func:`raster_epilogue` (``csrc/raster_epilogue.cu``) turns the RGB output
 of a batch into ``[B, H, W, 3]``, with per-image crop offsets and the
-``(x - mean) * inv_std`` normalisation in the same pass;
-:func:`raster_epilogue_reference` is its plain version.
+``(x - mean) * inv_std`` normalisation in the same pass, or writes each
+image into a given row of a shared output (the launches of a batch that
+mixes sampling modes); :func:`raster_epilogue_reference` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -389,11 +391,16 @@ def raster_epilogue_reference(raw: torch.Tensor, mode: S.ModeSpec,
                               out_h: int, out_w: int,
                               oys: Optional[torch.Tensor] = None,
                               oxs: Optional[torch.Tensor] = None,
-                              norm: Norm = None) -> torch.Tensor:
+                              norm: Norm = None,
+                              rows: Optional[torch.Tensor] = None,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Plain version of :func:`raster_epilogue`: the JAX package's
     ``_raster_relayout``, then the per-image crop (``oys``/``oxs``, or the
-    top-left ``out_h x out_w`` without them), then ``_apply_norm``.
-    Calls on CUDA tensors are counted under ``plain_on_cuda``."""
+    top-left ``out_h x out_w`` without them), then ``_apply_norm``; with
+    ``rows``, image b written into ``out[rows[b]]`` (nothing where that
+    row is outside ``out``).  Calls on CUDA tensors are counted under
+    ``plain_on_cuda``."""
     if raw.device.type == "cuda":
         _count("plain_on_cuda")
     v, h, n = mode.v, mode.h, 8 // scale
@@ -405,18 +412,24 @@ def raster_epilogue_reference(raw: torch.Tensor, mode: S.ModeSpec,
         crops = img[:, :out_h, :out_w]
     else:
         dev = raw.device
-        rows = (_crop_origins(oys, img.shape[1], out_h)[:, None]
-                + torch.arange(out_h, device=dev))
+        ys = (_crop_origins(oys, img.shape[1], out_h)[:, None]
+              + torch.arange(out_h, device=dev))
         cols = (_crop_origins(oxs, img.shape[2], out_w)[:, None]
                 + torch.arange(out_w, device=dev))
         crops = img[torch.arange(batch, device=dev)[:, None, None],
-                    rows[:, :, None], cols[:, None, :]]
-    return apply_norm(crops.contiguous(), norm)
+                    ys[:, :, None], cols[:, None, :]]
+    crops = apply_norm(crops.contiguous(), norm)
+    if rows is None:
+        return crops
+    dst = rows.long()
+    inside = (dst >= 0) & (dst < out.shape[0])
+    out[dst[inside]] = crops[inside]
+    return out
 
 
 def _check_epilogue(raw, mode: S.ModeSpec, scale: int, batch: int, gh: int,
                     gw: int, out_h: int, out_w: int, oys, oxs,
-                    norm: Norm) -> None:
+                    norm: Norm, rows=None, out=None) -> None:
     n = 8 // scale if scale in (1, 2, 4, 8) else 0
     want = (3, mode.luma_slots, n * n)
     if (raw.dtype != torch.uint8 or raw.dim() != 4
@@ -441,6 +454,20 @@ def _check_epilogue(raw, mode: S.ModeSpec, scale: int, batch: int, gh: int,
     if (norm[0] if norm else None) not in _OUT_KINDS:
         raise ValueError(f"output dtype must be float32, bfloat16 or "
                          f"float16, got {norm[0]}")
+    if (rows is None) != (out is None):
+        raise ValueError("pass both destination rows and out, or neither")
+    if rows is not None:
+        if (rows.dtype != torch.int32 or rows.shape != (batch,)
+                or rows.device != raw.device or not rows.is_contiguous()):
+            raise ValueError(f"destination rows must be contiguous int32 "
+                             f"[{batch}] on {raw.device}")
+        dtype = norm[0] if norm else torch.uint8
+        if (out.dim() != 4 or tuple(out.shape[1:]) != (out_h, out_w, 3)
+                or out.shape[0] < 1 or out.dtype != dtype
+                or out.device != raw.device or not out.is_contiguous()):
+            raise ValueError(f"out must be contiguous {dtype} [N, {out_h}, "
+                             f"{out_w}, 3] on {raw.device}, got "
+                             f"{tuple(out.shape)} {out.dtype} {out.device}")
 
 
 def raster_occupancy(mode: S.ModeSpec, scale: int,
@@ -469,9 +496,15 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
                     batch: int, gh: int, gw: int, out_h: int, out_w: int,
                     oys: Optional[torch.Tensor] = None,
                     oxs: Optional[torch.Tensor] = None,
-                    norm: Norm = None) -> torch.Tensor:
+                    norm: Norm = None,
+                    rows: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel RGB ``[3, gy, nn, M]`` of ``batch`` images (``gh x gw`` MCUs
-    each, image b at MCU b*gh*gw) -> ``[batch, out_h, out_w, 3]``.
+    each, image b at MCU b*gh*gw) -> ``[batch, out_h, out_w, 3]``, or,
+    with ``rows`` (int32 ``[batch]``, same device) and ``out`` (``[N,
+    out_h, out_w, 3]`` of the output dtype), image b written into
+    ``out[rows[b]]`` and ``out`` returned (a row outside ``out`` writes
+    nothing; the kernel's banded form).
 
     ``oys``/``oxs`` (int32 ``[batch]``, same device) are per-image crop
     origins in output pixels, read as ``jax.lax.dynamic_slice`` reads its
@@ -483,17 +516,19 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
     kernel in ``csrc/raster_epilogue.cu``, or the call raises.
     """
     _check_epilogue(raw, mode, scale, batch, gh, gw, out_h, out_w, oys, oxs,
-                    norm)
+                    norm, rows, out)
     if raw.device.type == "cpu":
         return raster_epilogue_reference(raw, mode, scale, batch, gh, gw,
-                                         out_h, out_w, oys, oxs, norm)
+                                         out_h, out_w, oys, oxs, norm, rows,
+                                         out)
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
     from pim_jpeg_decoder_tpu_torch.ops._build import load
     lib = load()
     dtype, mean3, inv3 = norm or (torch.uint8, None, None)
-    out = torch.empty((batch, out_h, out_w, 3), dtype=dtype,
-                      device=raw.device)
+    if out is None:
+        out = torch.empty((batch, out_h, out_w, 3), dtype=dtype,
+                          device=raw.device)
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pjt_cuda_raster_epilogue(
@@ -501,6 +536,7 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
             gh, gw, out_h, out_w,
             None if oys is None else oys.data_ptr(),
             None if oxs is None else oxs.data_ptr(),
+            None if rows is None else rows.data_ptr(), out.shape[0],
             _OUT_KINDS[norm[0] if norm else None],
             *(float(np.float32(c)) for c in mean3 or (0.0,) * 3),
             *(float(np.float32(c)) for c in inv3 or (1.0,) * 3),
@@ -511,7 +547,8 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
                            f"failed to launch: cudaError {rc}")
     _count("raster")
     if lib.pjt_cuda_raster_rows(raw.data_ptr(), raw.shape[3], mode.h,
-                                8 // scale, gw, out_w, oys is not None,
+                                8 // scale, gw, out_w,
+                                oys is not None or rows is not None,
                                 out.data_ptr()):
         _count("raster_rows")
     return out

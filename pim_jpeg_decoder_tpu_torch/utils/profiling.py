@@ -63,12 +63,14 @@ def all_threads_config():
 
 
 class StageTimers:
-    """Thread-safe accumulated seconds per pipeline stage."""
+    """Thread-safe accumulated seconds per pipeline stage, and summed
+    whole-number counters."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._acc: Dict[str, float] = {}
         self._count: Dict[str, int] = {}
+        self._counters: Dict[str, int] = {}
         # (stage, start event, end event) of stages timed on a card whose
         # end had not passed when last looked at.
         self._pending: List[tuple] = []
@@ -125,6 +127,18 @@ class StageTimers:
         with self._lock:
             self._acc[name] = self._acc.get(name, 0.0) + seconds
             self._count[name] = self._count.get(name, 0) + 1
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the whole-number counter ``name`` (work counted
+        beside the stages: MCUs, launches)."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    def counters(self) -> Dict[str, int]:
+        """``{counter: sum}`` of :meth:`count`, the sibling of
+        :meth:`snapshot`."""
+        with self._lock:
+            return dict(self._counters)
 
     def total(self) -> float:
         return time.monotonic() - self._t0

@@ -37,6 +37,7 @@ BOXES = [(0, 0), (3, 5), (16, 24)]
 CROP = (24, 32)
 WORKER_STAGES = {"scan", "scan.cpu", "entropy", "stage", "stage.cpu"}
 DEVICE_STAGES = {"h2d", "device"}
+CROP_COUNTERS = ("crop.mcus_decoded", "crop.mcus_shipped", "crop.mode_groups")
 
 
 def _three_batches(timers):
@@ -163,10 +164,58 @@ def test_crop_path_records_the_stages(api):
                                            timers=timers):
             pass
     snap = timers.snapshot()
-    want = WORKER_STAGES | DEVICE_STAGES | ({"queue"} if api == "iter"
-                                            else set())
+    want = WORKER_STAGES | DEVICE_STAGES | {"crop_gather"} | (
+        {"queue"} if api == "iter" else set())
     assert set(snap) == want
-    assert snap["scan"][1] == (2 if api == "iter" else 1)
+    assert snap["scan"][1] == snap["crop_gather"][1] == (
+        2 if api == "iter" else 1)
+    assert set(timers.counters()) == set(CROP_COUNTERS)
+
+
+def _mixed_modes():
+    """Three images of two modes and their crop origins: 4:2:0 40x56
+    (3 x 4 MCUs of 16 px), 4:4:4 47x61 (6 x 8 MCUs of 8 px), 4:2:0 48x64
+    (3 x 4)."""
+    blobs = [MIXED[0],
+             encode_jpeg(_photo(30, 47, 61), quality=75, sampling="4:4:4"),
+             MIXED[1]]
+    return blobs, [(0, 0), (17, 20), (16, 24)]
+
+
+def test_crop_counters_and_gather_on_a_known_batch():
+    """A 24x32 crop covers at most 3 x 3 MCUs at 4:2:0 (16-pixel MCUs, one
+    of slack) and 4 x 5 at 4:4:4 (8-pixel MCUs): the 4:2:0 launch ships 2
+    images x 9, the 4:4:4 launch 1 x 20; the host decoded 12 + 48 + 12
+    MCUs; two mode groups.  Twice through the iterator, twice the sums."""
+    blobs, boxes = _mixed_modes()
+    timers = StageTimers()
+    for _ in T.iter_decode_batch_crops([(blobs, boxes)] * 2, CROP,
+                                       device="cpu", mixed_sizes=True,
+                                       timers=timers):
+        pass
+    assert timers.counters() == {"crop.mcus_decoded": 2 * 72,
+                                 "crop.mcus_shipped": 2 * 38,
+                                 "crop.mode_groups": 2 * 2}
+    seconds, count = timers.snapshot()["crop_gather"]
+    assert count == 2 and seconds > 0
+
+
+def test_no_timers_nothing_counted(monkeypatch):
+    """Without timers the crop path counts nothing and opens no stage, and
+    gives the crops a run with timers gives."""
+    blobs, boxes = _mixed_modes()
+    timed, _ = T.decode_batch_crops(blobs, boxes, CROP, device="cpu",
+                                    timers=StageTimers())
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("counted or timed with timers=None")
+
+    for name in ("count", "stage", "add"):
+        monkeypatch.setattr(StageTimers, name, refuse)
+    plain, _ = T.decode_batch_crops(blobs, boxes, CROP, device="cpu")
+    assert torch.equal(plain, timed)
+    assert T._tcount(None, "crop.mode_groups", 1) is None
+    assert StageTimers().counters() == {}
 
 
 def test_crop_path_gives_the_same_crops_with_timers():
