@@ -875,47 +875,78 @@ def epilogue_cases(torch, dev, rng, max_err) -> int:
 
 # The batch of perfbench's loader-imagenet-crops cell: 224x224 crops, 224
 # images of 4:2:0 on 15x15-MCU sub-grids and 32 of 4:4:4 on 29x29, in
-# bfloat16 with the ImageNet statistics.
+# bfloat16 with the ImageNet statistics (M a multiple of 16 in both
+# groups); the split the cell mostly draws (M off the 16-byte grid in
+# both) is tools/decode_ab.CROP_CELL_GEOMETRIES.
 CROP_CELL = (((2, 2, 3), 224, 15), ((1, 1, 3), 32, 29))
 
 
 def crop_cell_epilogue_case(torch, dev, rng) -> int:
     """raster_epilogue against its plain version at the crop cell's two
-    geometries, each group written through its destination rows (a
-    shuffle of 0..255) into one output of 256 images, origins drawn over
-    each sub-grid's slack."""
+    geometries, in two splits of the batch (``CROP_CELL`` and the cell's
+    usual one, ``CROP_CELL_GEOMETRIES``, with M = B * g * g unpadded), each
+    group written through its destination rows (a shuffle of 0..255) into
+    one output of 256 images, origins drawn over each sub-grid's slack and,
+    for every eighth image and the last, at its far edge, so that the last
+    image's last band reads the input's final granule.  Every launch must
+    count as shifted (``raster_shifted``); prints the blocks an SM and the
+    band's shared memory at each geometry's row width."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        raster_epilogue, raster_epilogue_reference)
+        band_row_bytes, launch_counts, raster_epilogue,
+        raster_epilogue_reference, raster_occupancy)
+    from pim_jpeg_decoder_tpu_torch.tools.decode_ab import (
+        CROP_CELL_BATCH, CROP_CELL_GEOMETRIES)
 
     norm = _norm_static(torch.bfloat16, **IMAGENET_NORM)
-    batch = sum(b for _, b, _ in CROP_CELL)
-    got = torch.full((batch, 224, 224, 3), 77, dtype=torch.bfloat16,
-                     device=dev)
-    want = got.clone()
-    rows = rng.permutation(batch).astype(np.int32)
-    at = 0
-    for key, b, g in CROP_CELL:
-        mode = S.mode_for(key)
-        raw = torch.from_numpy(rng.integers(
-            0, 256, (3, mode.luma_slots, 64, b * g * g),
-            dtype=np.uint8)).to(dev)
-        offsets = [torch.from_numpy(rng.integers(
-            0, g * 8 * f - 224 + 1, b).astype(np.int32)).to(dev)
-            for f in (mode.v, mode.h)]
-        dst = torch.from_numpy(rows[at:at + b]).to(dev)
-        at += b
-        got = raster_epilogue(raw, mode, 1, b, g, g, 224, 224, *offsets,
-                              norm=norm, rows=dst, out=got)
-        want = raster_epilogue_reference(raw, mode, 1, b, g, g, 224, 224,
-                                         *offsets, norm=norm, rows=dst,
-                                         out=want)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("raster epilogue at the crop cell's geometries (4:2:0 B=224 "
-             "15x15, 4:4:4 B=32 29x29, rows into 256) != plain version")
-    return 1
+    cases = 0
+    for split in (CROP_CELL, CROP_CELL_GEOMETRIES):
+        batch = sum(b for _, b, _ in split)
+        assert batch == CROP_CELL_BATCH
+        got = torch.full((batch, 224, 224, 3), 77, dtype=torch.bfloat16,
+                         device=dev)
+        want = got.clone()
+        rows = rng.permutation(batch).astype(np.int32)
+        at = 0
+        for key, b, g in split:
+            mode = S.mode_for(key)
+            raw = torch.from_numpy(rng.integers(
+                0, 256, (3, mode.luma_slots, 64, b * g * g),
+                dtype=np.uint8)).to(dev)
+            origins = []
+            for f in (mode.v, mode.h):
+                far = g * 8 * f - 224
+                o = rng.integers(0, far + 1, b).astype(np.int32)
+                o[::8], o[-1] = far, far
+                origins.append(torch.from_numpy(o).to(dev))
+            dst = torch.from_numpy(rows[at:at + b]).to(dev)
+            at += b
+            before = launch_counts()["raster_shifted"]
+            got = raster_epilogue(raw, mode, 1, b, g, g, 224, 224, *origins,
+                                  norm=norm, rows=dst, out=got)
+            if launch_counts()["raster_shifted"] != before + 1:
+                fail(f"the crop cell's {mode.name} launch (B={b} on {g}x{g}"
+                     f") did not count as shifted")
+            want = raster_epilogue_reference(raw, mode, 1, b, g, g, 224, 224,
+                                              *origins, norm=norm, rows=dst,
+                                              out=want)
+            if split is CROP_CELL_GEOMETRIES:
+                row_bytes = band_row_bytes(g, True)
+                blocks, smem = raster_occupancy(mode, 1, torch.bfloat16,
+                                                row_bytes=row_bytes)
+                print(f"[2 kernels] crop cell epilogue {mode.name} B={b} on "
+                      f"{g}x{g} MCUs (M % 16 = {b * g * g % 16}): "
+                      f"{row_bytes}-byte band rows, {smem} B dynamic shared "
+                      f"memory, {blocks} blocks/SM", flush=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            groups = ", ".join(f"{S.mode_for(k).name} B={b} {g}x{g}"
+                               for k, b, g in split)
+            fail(f"raster epilogue at the crop cell's geometries ({groups}, "
+                 f"rows into {batch}) != plain version")
+        cases += 1
+    return cases
 
 
 # MCU columns per image where the epilogue's two forms branch.  Banded
@@ -1021,9 +1052,12 @@ def epilogue_band_cases(torch, dev, rng) -> tuple:
     b, gh, gw, height, width = LOADER_BATCH
     raw = torch.randint(0, 256, (3, mode.luma_slots, 64, b * gh * gw),
                         dtype=torch.uint8, device=dev, generator=gen)
+    shifted = launch_counts()["raster_shifted"]
     if not check("the loader cell's batch", raw, mode, 1, b, gh, gw, height,
                  width, dtype=torch.bfloat16, stats=CLIP_NORM):
         fail("the loader cell's batch did not take the epilogue's row form")
+    if launch_counts()["raster_shifted"] != shifted:
+        fail("the loader cell's row-form launch counted as shifted")
     cases += 1
     del raw
     torch.cuda.empty_cache()

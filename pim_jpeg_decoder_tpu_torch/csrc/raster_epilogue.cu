@@ -81,22 +81,37 @@
 // and every full batch the row form does not take.
 //   - a CUDA block owns a band of one image: one MCU row (v*n output rows)
 //     by CHUNK = 32 consecutive MCU columns.  In the input the chunk's MCUs
-//     are 32 contiguous bytes for every (channel, slot, pixel), so the band
-//     is 3*gy*n*n runs of 32 bytes.  The block copies the runs that its
-//     output window reaches (pixel rows and MCU columns outside it are
-//     skipped) into shared memory with 16-byte cp.async when the runs are
-//     16-byte aligned (M % 16 == 0 and the chunk's first MCU a multiple of
-//     16), and with coalesced byte loads otherwise (a per-block branch);
+//     are up to 32 contiguous bytes for every (channel, slot, pixel), so
+//     the band is 3*gy*n*n runs.  Run rho starts at raw + rho*M + m_first,
+//     s(rho) = (s(0) + rho * (M % 16)) % 16 bytes past the 16-byte grid.
+//     The block copies each run as the 16-byte granules that cover it,
+//     with cp.async, into a shared-memory row at the same offset inside
+//     the granule, so MCU m of the run sits at row byte s(rho) + m; bytes
+//     of a granule outside the run (the next MCUs, or the next image) are
+//     never stored.  Only a granule that would reach before raw or past
+//     the array's end loads byte by byte, and only its bytes inside.
+//     Pixel rows and granules outside the output window are skipped.
+//     This replaced a load that took 16-byte copies only where every run
+//     was on the grid (M % 16 == 0 and the chunk's first MCU a multiple of
+//     16) and one byte a lane otherwise, with a run's ragged end serialised
+//     on one thread: the crop path's sub-grids (15 MCUs wide at 4:2:0, M
+//     rarely a multiple of 16) took the byte loads in every band;
 //   - inside the band every output row is contiguous.  A lane assembles one
 //     16-byte-aligned piece of a row (16 u8, 8 bf16/f16 or 4 f32 elements:
 //     6, 4 or 2 pixels read from shared memory byte by byte, shifted into
 //     place with one funnel shift a word) and writes it with one 16-byte
 //     store; the pieces at a row's two ends, where the row does not start
-//     or end on the 16-byte grid, store their elements one by one;
-//   - shared-memory rows are 32 bytes with 16 bytes of padding after every
-//     n rows, so that the pixel column wx moves a byte read by 4 banks.
-//     Measured on an H100 against ROW_PAD = 0 in one call it is worth 2% on
-//     224x224 crops;
+//     or end on the 16-byte grid, store their elements one by one.  Where
+//     M % 16 == 0 every run of the block has the shift s(0), folded into
+//     the row's address once; otherwise each byte read adds its run's
+//     shift, a multiply-add and a mask from the pixel and channel;
+//   - shared-memory rows are 32 bytes, or 48 where a run plus its shift
+//     can pass 32 (a launch off the grid with chunks over 17 MCUs: 4:4:4
+//     crops' 29-wide sub-grids), chosen per launch (band_row_bytes), so a
+//     4:2:0 band at scale 1 keeps 8 blocks an SM wherever it can.  After
+//     every n rows come 16 bytes of padding, so that the pixel column wx
+//     moves a byte read by 4 banks at either width.  Measured on an H100
+//     against ROW_PAD = 0 in one call it is worth 2% on 224x224 crops;
 //   - the block decodes its image, MCU row, chunk, crop origin and
 //     destination row once;
 //     n and h are template parameters, so the per-pixel index arithmetic is
@@ -129,6 +144,7 @@ struct Geometry {
   int batch, gh, gw;    // images, MCU rows and columns per image
   int out_h, out_w;
   int rows, chunks;     // banded form: bands per image (rows x chunks)
+  int row_bytes;        // banded form: bytes of a band's shared-memory row
   int band_rows;        // row form: R, the MCU rows of a band; 0: banded
   int copy;             // row form: bytes per cp.async (16, 8 or 4)
   int out_batch;        // images of the output (batch without dst rows)
@@ -167,19 +183,73 @@ __device__ __forceinline__ uint32_t encode<__half>(float x) {
 
 // --- the banded form ---------------------------------------------------------
 
-// Byte offset in the band of input row rho ((c*gy + slot)*n*n + pixel).
+// Byte offset in the band of input row rho ((c*gy + slot)*n*n + pixel), in
+// rows of rw bytes.
 template <int N>
-__device__ __forceinline__ int band_offset(int rho) {
-  return rho * CHUNK + (rho / N) * ROW_PAD;
+__device__ __forceinline__ int band_offset(int rho, int rw) {
+  return rho * rw + (rho / N) * ROW_PAD;
 }
 
-template <typename OutT, int N, int H>
-__device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
-                                       const int32_t* __restrict__ oys,
-                                       const int32_t* __restrict__ oxs,
-                                       const int32_t* __restrict__ dst_rows,
-                                       const Geometry& g, const Norm& norm,
-                                       OutT* __restrict__ out, uint8_t* band) {
+// At either row width the pixel column wx (n = 8 rows and their padding)
+// moves a byte read by 4 banks.
+static_assert((8 * CHUNK + ROW_PAD) / 4 % 32 == 4 &&
+                  (8 * (CHUNK + VEC) + ROW_PAD) / 4 % 32 == 4,
+              "a band row width puts wx's byte reads on the same banks");
+
+// What a banded-form block decodes once: its image's place in the output,
+// its crop origin and MCU row, its output window (rows [y_lo, y_hi),
+// columns [x_lo, x_hi)), the window's first column in the chunk, and the
+// shift of the band's run 0 with M % VEC, from which every run's follows.
+struct Band {
+  int ob, oy, mrow;
+  int y_lo, y_hi, x_lo, x_hi;
+  int col0;
+  int s0, mm;
+};
+
+// Copy the band's runs as the G granules of VEC bytes that cover each (rows
+// of G * VEC bytes).  at0: the input byte of run 0's first MCU (run rho
+// starts rho * M bytes later); total: the input's bytes; s0 = (raw + at0) %
+// VEC and mm = M % VEC, so run rho starts (s0 + rho * mm) % VEC bytes past
+// the grid.
+template <int N, int H, int G>
+__device__ __forceinline__ void load_band(const uint8_t* __restrict__ raw,
+                                          long long at0, long long num_mcus,
+                                          long long total, int rows_total,
+                                          int v, int s0, int mm, int wy_lo,
+                                          int wy_hi, int m_lo, int m_hi,
+                                          uint8_t* band) {
+  constexpr int NN = N * N;
+  for (int i = threadIdx.x; i < rows_total * G; i += THREADS) {
+    const int rho = i / G, gi = i - rho * G;
+    const int wy = ((rho / (H * NN)) & (v - 1)) * N + rho % N;
+    // The granule's first byte, counted from the run's (negative: before).
+    const int first = gi * VEC - ((s0 + rho * mm) & (VEC - 1));
+    if (wy < wy_lo || wy > wy_hi || first > m_hi || first + VEC <= m_lo) {
+      continue;
+    }
+    uint8_t* dst = band + band_offset<N>(rho, G * VEC) + gi * VEC;
+    const long long at = at0 + rho * num_mcus + first;
+    if (at >= 0 && at + VEC <= total) {
+      __pipeline_memcpy_async(dst, raw + at, VEC);
+    } else {   // the array's first or last granule: only its bytes inside
+      for (int t = 0; t < VEC; ++t) {
+        if (at + t >= 0 && at + t < total) dst[t] = __ldg(raw + at + t);
+      }
+    }
+  }
+}
+
+// Store a loaded band's window rows, one 16-byte-aligned piece a lane.
+// PER_RUN: the runs' shifts differ (M % VEC != 0), so each byte read adds
+// its own, (s0 + rho * mm) % VEC for its run rho; else every run's is s0,
+// added to the row's address once (adding a per-byte shift on every launch
+// cost 5% at scale 2 on an H100).
+template <typename OutT, int N, int H, bool PER_RUN>
+__device__ __forceinline__ void store_band(const uint8_t* __restrict__ band,
+                                           const Geometry& g,
+                                           const Norm& norm, const Band& bd,
+                                           OutT* __restrict__ out) {
   constexpr int NN = N * N, TW = H * N;
   constexpr int TW_SHIFT = TW == 16 ? 4 : TW == 8 ? 3 : TW == 4 ? 2
                            : TW == 2 ? 1 : 0;
@@ -188,91 +258,25 @@ __device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
   constexpr int NPX = (EPP + 2 + 2) / 3;     // pixels a piece can touch
   constexpr int WORDS = (NPX * 3 + 3) / 4;
   const int th = g.v * N, gy = g.v * H;
-
-  // The block's band: image b, MCU row mrow, MCU columns from mcu0.
-  unsigned id = blockIdx.x;
-  const int k = static_cast<int>(id % g.chunks);
-  id /= g.chunks;
-  const int j = static_cast<int>(id % g.rows);
-  const int b = static_cast<int>(id / g.rows);
-  int oy = 0, ox = 0;
-  if (oys != nullptr) {
-    oy = crop_origin(__ldg(oys + b), g.gh * th, g.out_h);
-    ox = crop_origin(__ldg(oxs + b), g.gw * TW, g.out_w);
-  }
-  int ob = b;   // the image's place in the output
-  if (dst_rows != nullptr) {
-    ob = __ldg(dst_rows + b);
-    if (ob < 0 || ob >= g.out_batch) return;
-  }
-  const int mrow = oy / th + j;
-  const int mcu0 = ((ox >> TW_SHIFT) / CHUNK + k) * CHUNK;
-  const int valid = min(CHUNK, g.gw - mcu0);   // MCUs of the chunk
-  // Its output window: rows [y_lo, y_hi), columns [x_lo, x_hi).
-  const int y_lo = max(0, mrow * th - oy);
-  const int y_hi = min(g.out_h, (mrow + 1) * th - oy);
-  const int x_lo = max(0, mcu0 * TW - ox);
-  const int x_hi = min(g.out_w, (mcu0 + valid) * TW - ox);
-  if (y_lo >= y_hi || x_lo >= x_hi) return;
-  // The pixel rows of the MCU row and the MCUs of the chunk it reaches.
-  const int wy_lo = oy + y_lo - mrow * th, wy_hi = oy + y_hi - 1 - mrow * th;
-  const int col0 = ox + x_lo - mcu0 * TW;      // first column, in the chunk
-  const int m_lo = col0 >> TW_SHIFT;
-  const int m_hi = (col0 + x_hi - x_lo - 1) >> TW_SHIFT;
-
-  // Load the band: row rho = c*gy*NN + sy*H*NN + N*wx + wy%N holds pixel
-  // (wy, wx) of channel c for the chunk's MCUs.
-  const long long m_first =
-      (static_cast<long long>(b) * g.gh + mrow) * g.gw + mcu0;
-  const uint8_t* src0 = raw + m_first;
-  const int rows_total = 3 * gy * NN;
-  const bool aligned = g.num_mcus % VEC == 0 && m_first % VEC == 0 &&
-                       reinterpret_cast<uintptr_t>(raw) % VEC == 0;
-  if (aligned) {
-    constexpr int PIECES = CHUNK / VEC;
-    for (int i = threadIdx.x; i < rows_total * PIECES; i += THREADS) {
-      const int rho = i / PIECES, first = (i % PIECES) * VEC;
-      const int wy = ((rho / (H * NN)) & (g.v - 1)) * N + rho % N;
-      if (wy < wy_lo || wy > wy_hi || first > m_hi || first + VEC <= m_lo) {
-        continue;
-      }
-      uint8_t* dst = band + band_offset<N>(rho) + first;
-      const uint8_t* src =
-          src0 + static_cast<size_t>(rho) * g.num_mcus + first;
-      if (first + VEC <= valid) {
-        __pipeline_memcpy_async(dst, src, VEC);
-      } else {   // the ragged end of the grid: never read past it
-        for (int t = 0; first + t <= m_hi; ++t) dst[t] = __ldg(src + t);
-      }
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-  } else {
-    for (int i = threadIdx.x; i < rows_total * CHUNK; i += THREADS) {
-      const int rho = i / CHUNK, mj = i % CHUNK;
-      const int wy = ((rho / (H * NN)) & (g.v - 1)) * N + rho % N;
-      if (wy < wy_lo || wy > wy_hi || mj < m_lo || mj > m_hi) continue;
-      band[band_offset<N>(rho) + mj] =
-          __ldg(src0 + static_cast<size_t>(rho) * g.num_mcus + mj);
-    }
-  }
-  __syncthreads();
-
-  // Store the window's rows, one 16-byte-aligned piece a lane.
-  constexpr int WX_STEP = N * CHUNK + ROW_PAD;          // band bytes per wx
-  constexpr int SY_STEP = H * NN * CHUNK + H * N * ROW_PAD;
-  const int plane = gy * (NN * CHUNK + N * ROW_PAD);    // band bytes per c
-  const int npx = x_hi - x_lo, seg_elems = 3 * npx;
+  const int rw = g.row_bytes;
+  const int wx_step = N * rw + ROW_PAD;                 // band bytes per wx
+  const int sy_step = H * N * wx_step;
+  const int plane = gy * N * wx_step;                   // band bytes per c
+  // A run's shift grows by wx * n_mm from pixel column wx, and by c * c_mm
+  // from channel c (0 mod VEC where n*n is a multiple of VEC).
+  const int n_mm = N * bd.mm, c_mm = NN % VEC == 0 ? 0 : gy * NN * bd.mm;
+  const int npx = bd.x_hi - bd.x_lo, seg_elems = 3 * npx;
   const unsigned ppr = (seg_elems * ELEM + VEC - 1) / VEC + 1;
-  const unsigned items = static_cast<unsigned>(y_hi - y_lo) * ppr;
+  const unsigned items = static_cast<unsigned>(bd.y_hi - bd.y_lo) * ppr;
   uint8_t* const out_bytes = reinterpret_cast<uint8_t*>(out);
   for (unsigned it = threadIdx.x; it < items; it += THREADS) {
     const int yi = static_cast<int>(it / ppr);
     const int p = static_cast<int>(it - yi * ppr);
-    const int y = y_lo + yi;
+    const int y = bd.y_lo + yi;
     // The row's segment starts at element 3*x_lo of output row (ob, y).
     const size_t seg_byte =
-        ((static_cast<size_t>(ob) * g.out_h + y) * g.out_w + x_lo) * 3 * ELEM;
+        ((static_cast<size_t>(bd.ob) * g.out_h + y) * g.out_w + bd.x_lo) *
+        3 * ELEM;
     const int head = static_cast<int>(
         reinterpret_cast<uintptr_t>(out_bytes + seg_byte) % VEC);
     // Piece p: elements [e0, e0 + EPP) of the segment (e0 < 0: the piece
@@ -280,20 +284,26 @@ __device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
     const int e0 = (p * VEC - head) / ELEM;
     if (e0 >= seg_elems) continue;
     const int x0 = (e0 + 18) / 3 - 6, phi = (e0 + 18) % 3;
-    const int wy = oy + y - mrow * th;
-    const uint8_t* row = band + (wy / N) * SY_STEP + (wy % N) * CHUNK;
+    const int wy = bd.oy + y - bd.mrow * th;
+    const uint8_t* row =
+        band + (wy / N) * sy_step + (wy % N) * rw + (PER_RUN ? 0 : bd.s0);
+    // The shift of the row's run at wx = 0 and c = 0.
+    const int sy = bd.s0 + ((wy / N) * H * NN + wy % N) * bd.mm;
 
     // NPX pixels from x0 (clamped into the window), 3 bytes each.
     uint32_t w[WORDS + 1] = {};
 #pragma unroll
     for (int i = 0; i < NPX; ++i) {
-      const int col = col0 + min(max(x0 + i, 0), npx - 1);
-      const uint8_t* px =
-          row + (col & (TW - 1)) * WX_STEP + (col >> TW_SHIFT);
+      const int col = bd.col0 + min(max(x0 + i, 0), npx - 1);
+      const int wx = col & (TW - 1);
+      const uint8_t* px = row + wx * wx_step + (col >> TW_SHIFT);
+      const int sx = sy + wx * n_mm;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const int at = i * 3 + c;
-        w[at / 4] |= static_cast<uint32_t>(px[c * plane]) << (at % 4 * 8);
+        const int shift = PER_RUN ? (sx + c * c_mm) & (VEC - 1) : 0;
+        w[at / 4] |= static_cast<uint32_t>(px[c * plane + shift])
+                     << (at % 4 * 8);
       }
     }
     // Byte i of s: channel (phi + i) % 3 of element e0 + i.
@@ -353,6 +363,77 @@ __device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
         }
       }
     }
+  }
+}
+
+template <typename OutT, int N, int H>
+__device__ __forceinline__ void banded(const uint8_t* __restrict__ raw,
+                                       const int32_t* __restrict__ oys,
+                                       const int32_t* __restrict__ oxs,
+                                       const int32_t* __restrict__ dst_rows,
+                                       const Geometry& g, const Norm& norm,
+                                       OutT* __restrict__ out, uint8_t* band) {
+  constexpr int NN = N * N, TW = H * N;
+  constexpr int TW_SHIFT = TW == 16 ? 4 : TW == 8 ? 3 : TW == 4 ? 2
+                           : TW == 2 ? 1 : 0;
+  const int th = g.v * N, gy = g.v * H;
+
+  // The block's band: image b, MCU row mrow, MCU columns from mcu0.
+  unsigned id = blockIdx.x;
+  const int k = static_cast<int>(id % g.chunks);
+  id /= g.chunks;
+  const int j = static_cast<int>(id % g.rows);
+  const int b = static_cast<int>(id / g.rows);
+  int oy = 0, ox = 0;
+  if (oys != nullptr) {
+    oy = crop_origin(__ldg(oys + b), g.gh * th, g.out_h);
+    ox = crop_origin(__ldg(oxs + b), g.gw * TW, g.out_w);
+  }
+  int ob = b;   // the image's place in the output
+  if (dst_rows != nullptr) {
+    ob = __ldg(dst_rows + b);
+    if (ob < 0 || ob >= g.out_batch) return;
+  }
+  const int mrow = oy / th + j;
+  const int mcu0 = ((ox >> TW_SHIFT) / CHUNK + k) * CHUNK;
+  const int valid = min(CHUNK, g.gw - mcu0);   // MCUs of the chunk
+  // Its output window: rows [y_lo, y_hi), columns [x_lo, x_hi).
+  const int y_lo = max(0, mrow * th - oy);
+  const int y_hi = min(g.out_h, (mrow + 1) * th - oy);
+  const int x_lo = max(0, mcu0 * TW - ox);
+  const int x_hi = min(g.out_w, (mcu0 + valid) * TW - ox);
+  if (y_lo >= y_hi || x_lo >= x_hi) return;
+  // The pixel rows of the MCU row and the MCUs of the chunk it reaches.
+  const int wy_lo = oy + y_lo - mrow * th, wy_hi = oy + y_hi - 1 - mrow * th;
+  const int col0 = ox + x_lo - mcu0 * TW;      // first column, in the chunk
+  const int m_lo = col0 >> TW_SHIFT;
+  const int m_hi = (col0 + x_hi - x_lo - 1) >> TW_SHIFT;
+
+  // Load the band: row rho = c*gy*NN + sy*H*NN + N*wx + wy%N holds pixel
+  // (wy, wx) of channel c for the chunk's MCUs, MCU m at byte shift + m.
+  const long long m_first =
+      (static_cast<long long>(b) * g.gh + mrow) * g.gw + mcu0;
+  const int rows_total = 3 * gy * NN;
+  const int s0 = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(raw) + m_first) % VEC);
+  const int mm = static_cast<int>(g.num_mcus % VEC);
+  const long long total = rows_total * g.num_mcus;
+  if (g.row_bytes == 2 * VEC) {
+    load_band<N, H, 2>(raw, m_first, g.num_mcus, total, rows_total, g.v, s0,
+                       mm, wy_lo, wy_hi, m_lo, m_hi, band);
+  } else {
+    load_band<N, H, 3>(raw, m_first, g.num_mcus, total, rows_total, g.v, s0,
+                       mm, wy_lo, wy_hi, m_lo, m_hi, band);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const Band bd{ob, oy, mrow, y_lo, y_hi, x_lo, x_hi, col0, s0, mm};
+  if (mm == 0) {
+    store_band<OutT, N, H, false>(band, g, norm, bd, out);
+  } else {
+    store_band<OutT, N, H, true>(band, g, norm, bd, out);
   }
 }
 
@@ -674,8 +755,12 @@ __device__ __forceinline__ void row_form(const uint8_t* __restrict__ raw,
                    reinterpret_cast<uint8_t*>(out));
 }
 
+// The banded form asks for 8 blocks an SM (32 registers a thread), which
+// its code fits without spilling: left free, the compiler took 48 and an
+// SM held 5, 6% slower at scale 2 on an H100.  0 leaves the row form's
+// allocation free (4 blocks an SM by shared memory).
 template <typename OutT, int N, int H, bool ROWS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, ROWS ? 0 : 8)
 raster_epilogue_kernel(const uint8_t* __restrict__ raw,
                        const int32_t* __restrict__ oys,
                        const int32_t* __restrict__ oxs,
@@ -720,11 +805,30 @@ Kernel<OutT> rows_kernel() {
   return raster_epilogue_kernel<OutT, RN, RH, true>;
 }
 
-// Dynamic shared memory of a banded-form band: 3*gy*n*n rows and their
-// padding.
-int band_bytes(int v, int h, int n) {
+// Dynamic shared memory of a banded-form band: 3*gy*n*n rows of row_bytes
+// and their padding.
+int band_bytes(int v, int h, int n, int row_bytes) {
   const int rows = 3 * v * h * n * n;
-  return rows * CHUNK + rows / n * ROW_PAD;
+  return rows * row_bytes + rows / n * ROW_PAD;
+}
+
+// Whether some run of a banded-form launch starts off the 16-byte grid:
+// the input address or M off it, or the image width over more than one
+// MCU row of the batch (a chunk's first MCU is a multiple of CHUNK).  The
+// launch counter raster_shifted (ops/decode_kernel.py) reads this rule.
+bool band_shifted(const void* raw, long long num_mcus, int batch, int gh,
+                  int gw) {
+  return reinterpret_cast<uintptr_t>(raw) % VEC != 0 ||
+         num_mcus % VEC != 0 ||
+         (gw % VEC != 0 && static_cast<long long>(batch) * gh > 1);
+}
+
+// A banded-form row: the granules of a run of up to CHUNK bytes at its
+// shift.  32 bytes where every run plus its shift fits (no shift, or
+// chunks of at most 17 MCUs), else 48.
+int band_row_bytes(bool shifted, int gw) {
+  const int widest = gw < CHUNK ? gw : CHUNK;
+  return shifted && widest + VEC - 1 > CHUNK ? CHUNK + VEC : CHUNK;
 }
 
 // Dynamic shared memory of a row-form block: the band, the staging buffer
@@ -784,7 +888,8 @@ int launch(const void* raw, const void* oys, const void* oxs,
     const unsigned blocks =
         static_cast<unsigned>(g.batch) * g.rows * g.chunks;
     const Kernel<OutT> kernel = kernel_for<OutT>(n, h);
-    kernel<<<blocks, THREADS, band_bytes(g.v, h, n), stream>>>(
+    const int smem = band_bytes(g.v, h, n, g.row_bytes);
+    kernel<<<blocks, THREADS, smem, stream>>>(
         in, static_cast<const int32_t*>(oys),
         static_cast<const int32_t*>(oxs),
         static_cast<const int32_t*>(dst_rows), g, norm, dst);
@@ -802,7 +907,7 @@ int launch(const void* raw, const void* oys, const void* oxs,
 }
 
 template <typename OutT>
-int occupancy(int v, int h, int n, bool rows, int* blocks) {
+int occupancy(int v, int h, int n, int row_bytes, bool rows, int* blocks) {
   if (rows) {
     const cudaError_t e = rows_prepared<OutT>();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -810,24 +915,26 @@ int occupancy(int v, int h, int n, bool rows, int* blocks) {
         blocks, rows_kernel<OutT>(), THREADS, rows_bytes(v)));
   }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel_for<OutT>(n, h), THREADS, band_bytes(v, h, n)));
+      blocks, kernel_for<OutT>(n, h), THREADS,
+      band_bytes(v, h, n, row_bytes)));
 }
 
-int occupancy_of(int v, int h, int n, int out_kind, bool rows, int* blocks,
-                 int* smem_bytes) {
-  if (!supported(v, h, n) || (rows && h * n != RTW)) {
+int occupancy_of(int v, int h, int n, int out_kind, int row_bytes,
+                 bool rows, int* blocks, int* smem_bytes) {
+  if (!supported(v, h, n) || (rows && h * n != RTW) ||
+      (row_bytes != CHUNK && row_bytes != CHUNK + VEC)) {
     return cudaErrorInvalidValue;
   }
-  *smem_bytes = rows ? rows_bytes(v) : band_bytes(v, h, n);
+  *smem_bytes = rows ? rows_bytes(v) : band_bytes(v, h, n, row_bytes);
   switch (out_kind) {
     case 0:
-      return occupancy<uint8_t>(v, h, n, rows, blocks);
+      return occupancy<uint8_t>(v, h, n, row_bytes, rows, blocks);
     case 1:
-      return occupancy<float>(v, h, n, rows, blocks);
+      return occupancy<float>(v, h, n, row_bytes, rows, blocks);
     case 2:
-      return occupancy<__nv_bfloat16>(v, h, n, rows, blocks);
+      return occupancy<__nv_bfloat16>(v, h, n, row_bytes, rows, blocks);
     case 3:
-      return occupancy<__half>(v, h, n, rows, blocks);
+      return occupancy<__half>(v, h, n, row_bytes, rows, blocks);
   }
   return cudaErrorInvalidValue;
 }
@@ -868,8 +975,11 @@ extern "C" int pjt_cuda_raster_epilogue(
   }
   const int copy = rows_copy(raw, num_mcus, h, n, gw, out_w,
                              crop || dst_rows != nullptr, out);
-  const Geometry g{num_mcus, v,      batch, gh, gw, out_h, out_w, rows,
-                   chunks,   copy ? CHUNK / gw : 0, copy, out_batch};
+  const int row_bytes =
+      band_row_bytes(band_shifted(raw, num_mcus, batch, gh, gw), gw);
+  const Geometry g{num_mcus, v,         batch, gh, gw, out_h,
+                   out_w,    rows,      chunks, row_bytes,
+                   copy ? CHUNK / gw : 0, copy, out_batch};
   const Norm norm{{mean0, mean1, mean2}, {inv0, inv1, inv2}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_kind) {
@@ -894,11 +1004,14 @@ extern "C" int pjt_cuda_raster_rows(const void* raw, long long num_mcus,
   return rows_copy(raw, num_mcus, h, n, gw, out_w, crop != 0, out) != 0;
 }
 
-// Blocks of the banded-form epilogue kernel for this geometry and output
-// kind that one SM holds, and the band's dynamic shared memory in bytes.
+// Blocks of the banded-form epilogue kernel for this geometry, output kind
+// and shared-memory row width (32 or 48 bytes, as the launch picks it) that
+// one SM holds, and the band's dynamic shared memory in bytes.
 extern "C" int pjt_cuda_raster_occupancy(int v, int h, int n, int out_kind,
-                                         int* blocks, int* smem_bytes) {
-  return occupancy_of(v, h, n, out_kind, false, blocks, smem_bytes);
+                                         int row_bytes, int* blocks,
+                                         int* smem_bytes) {
+  return occupancy_of(v, h, n, out_kind, row_bytes, false, blocks,
+                      smem_bytes);
 }
 
 // The same for the row form: blocks an SM holds and a block's dynamic
@@ -906,5 +1019,5 @@ extern "C" int pjt_cuda_raster_occupancy(int v, int h, int n, int out_kind,
 extern "C" int pjt_cuda_raster_rows_occupancy(int v, int h, int n,
                                               int out_kind, int* blocks,
                                               int* smem_bytes) {
-  return occupancy_of(v, h, n, out_kind, true, blocks, smem_bytes);
+  return occupancy_of(v, h, n, out_kind, CHUNK, true, blocks, smem_bytes);
 }

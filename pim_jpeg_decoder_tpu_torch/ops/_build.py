@@ -150,7 +150,7 @@ def load() -> ctypes.CDLL:
                      [i32, ctypes.c_int64, ptr, ptr, ptr]),
                     (lib.pjt_cuda_mxu64_occupancy,
                      [ctypes.c_int64, ptr, ptr, ptr]),
-                    (lib.pjt_cuda_raster_occupancy, [i32] * 4 + [ptr, ptr]),
+                    (lib.pjt_cuda_raster_occupancy, [i32] * 5 + [ptr, ptr]),
                     (lib.pjt_cuda_raster_rows_occupancy,
                      [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_raster_rows,

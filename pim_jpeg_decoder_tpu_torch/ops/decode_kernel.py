@@ -42,9 +42,12 @@ from pim_jpeg_decoder_tpu_torch.ops.idct_math import idct_1d
 # "plain_on_cuda" counts plain-version calls on CUDA tensors (a run that
 # claims to use the kernels must show 0 there).  "raster" counts every
 # epilogue launch, "raster_rows" those that took its row form (full
-# batches in bands of whole MCU rows, see csrc/raster_epilogue.cu).
+# batches in bands of whole MCU rows, see csrc/raster_epilogue.cu), and
+# "raster_shifted" those of its banded form that copy runs off the 16-byte
+# grid (:func:`raster_shifted`).
 _counts: Dict[str, int] = {"rgb": 0, "ycbcr": 0, "rgb_scaled": 0,
-                           "raster": 0, "raster_rows": 0, "dequant": 0,
+                           "raster": 0, "raster_rows": 0,
+                           "raster_shifted": 0, "dequant": 0,
                            "idct": 0, "color": 0,
                            "memfloor": 0, "truerez": 0, "stacked": 0,
                            "mxu2pass": 0, "mxu64": 0, "vlc": 0,
@@ -470,14 +473,35 @@ def _check_epilogue(raw, mode: S.ModeSpec, scale: int, batch: int, gh: int,
                              f"{tuple(out.shape)} {out.dtype} {out.device}")
 
 
+def raster_shifted(raw_ptr: int, num_mcus: int, batch: int, gh: int,
+                   gw: int, row_form: bool = False) -> bool:
+    """Whether an epilogue launch takes shifted copies: its banded form
+    (not ``row_form``) with some input run off the 16-byte grid, because
+    the input address ``raw_ptr`` or ``num_mcus`` (M) is off it, or the
+    image width ``gw`` is over more than one MCU row of the batch (a band's
+    first MCU is then off it).  The launcher in ``csrc/raster_epilogue.cu``
+    (``band_shifted``) reads the same rule to size the band's rows."""
+    return not row_form and (raw_ptr % 16 != 0 or num_mcus % 16 != 0
+                             or (gw % 16 != 0 and batch * gh > 1))
+
+
+def band_row_bytes(gw: int, shifted: bool) -> int:
+    """Bytes of a banded-form shared-memory row, as the launcher picks
+    them: 32 where every run of up to ``min(gw, 32)`` bytes fits with its
+    shift (no shift, or ``gw`` <= 17), else 48."""
+    return 48 if shifted and min(gw, 32) + 15 > 32 else 32
+
+
 def raster_occupancy(mode: S.ModeSpec, scale: int,
                      dtype: Optional[torch.dtype] = None,
-                     rows: bool = False) -> Tuple[int, int]:
+                     rows: bool = False,
+                     row_bytes: int = 32) -> Tuple[int, int]:
     """``(blocks per SM, dynamic shared memory bytes)`` of the epilogue
     kernel that ``mode`` at ``scale`` launches for output ``dtype`` (None:
-    uint8), in its banded form or (``rows``; scale 1 of modes two blocks
-    wide only) its row form, from the CUDA occupancy calculator on the
-    current card."""
+    uint8), in its banded form with shared-memory rows of ``row_bytes``
+    (32 or 48: :func:`band_row_bytes`) or (``rows``; scale 1 of modes two
+    blocks wide only) its row form, from the CUDA occupancy calculator on
+    the current card."""
     import ctypes
 
     from pim_jpeg_decoder_tpu_torch.ops._build import load
@@ -485,7 +509,8 @@ def raster_occupancy(mode: S.ModeSpec, scale: int,
     query = (lib.pjt_cuda_raster_rows_occupancy if rows
              else lib.pjt_cuda_raster_occupancy)
     blocks, smem = ctypes.c_int(), ctypes.c_int()
-    rc = query(mode.v, mode.h, 8 // scale, _OUT_KINDS[dtype],
+    extra = () if rows else (row_bytes,)
+    rc = query(mode.v, mode.h, 8 // scale, _OUT_KINDS[dtype], *extra,
                ctypes.byref(blocks), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc}")
@@ -546,10 +571,12 @@ def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,
                            f"{scale}, {batch}x{out_h}x{out_w}, {dtype}) "
                            f"failed to launch: cudaError {rc}")
     _count("raster")
-    if lib.pjt_cuda_raster_rows(raw.data_ptr(), raw.shape[3], mode.h,
-                                8 // scale, gw, out_w,
-                                oys is not None or rows is not None,
-                                out.data_ptr()):
+    row_form = bool(lib.pjt_cuda_raster_rows(
+        raw.data_ptr(), raw.shape[3], mode.h, 8 // scale, gw, out_w,
+        oys is not None or rows is not None, out.data_ptr()))
+    if row_form:
         _count("raster_rows")
+    elif raster_shifted(raw.data_ptr(), raw.shape[3], batch, gh, gw):
+        _count("raster_shifted")
     return out
 

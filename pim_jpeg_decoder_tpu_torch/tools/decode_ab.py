@@ -28,7 +28,10 @@ crops of the scale-1 batch -> bfloat16 normalised and scale 1 -> float32
 normalised, on full batches of 224x224, 384x384 and 512x512 images
 (``SQUARE_BATCHES``) -> bfloat16, and on the loader
 benchmark's batch (``LOADER_BATCH``: 256 images of 16 x 16 4:2:0 MCUs,
-256x256) at scale 1 -> bfloat16 with CLIP's statistics; the dequantize stage
+256x256) at scale 1 -> bfloat16 with CLIP's statistics; the crop cell's two
+launches (``CROP_CELL_GEOMETRIES``: 4:2:0 B=225 on 15 x 15 MCUs and 4:4:4
+B=31 on 29 x 29, 224x224 crops -> bfloat16 through destination rows into
+one output of 256); the dequantize stage
 (``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires;
 the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
 4:2:0, M=16,384 and 196,608, int16: the IDCT on the dequantize stage's
@@ -110,6 +113,16 @@ EPILOGUE_GEOMETRIES: Tuple[Tuple[str, tuple, int, Optional[str],
      IMAGENET_NORM),
     ("scale 1 -> bfloat16", SQUARE_BATCHES[2], 1, "bfloat16", None,
      IMAGENET_NORM))
+# The crop cell's two epilogue launches (perfbench loader-imagenet-crops)
+# in the split it mostly draws: the batch's 4:2:0 group, 225 images on
+# 15 x 15-MCU sub-grids, and its 4:4:4 group, 31 on 29 x 29, each with M =
+# B * g * g (no padding, so M % 16 != 0) and 224x224 crops -> bfloat16 with
+# ImageNet's statistics written through destination rows into one output
+# of CROP_CELL_BATCH images.  ((h, v, ncomp), images, MCUs a side)
+CROP_CELL_GEOMETRIES: Tuple[Tuple[tuple, int, int], ...] = (
+    ((2, 2, 3), 225, 15), ((1, 1, 3), 31, 29))
+CROP_CELL_BATCH = 256
+CROP_CELL_CROP = (224, 224)
 # (M, wire bytes) of the dequantize stage at 4:2:0
 DEQUANT_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
     (16384, 2), (16384, 1), (196608, 2), (196608, 1))
@@ -150,6 +163,14 @@ def geometry_name(kernel: str, mode_name: str, m: int, wire: int) -> str:
 def epilogue_name(label: str, batch: tuple = BATCH) -> str:
     b, _, _, h, w = batch
     return f"epilogue B={b} {w}x{h} 4:2:0 {label}"
+
+
+def crop_cell_name(key: tuple, b: int, g: int) -> str:
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+
+    h, w = CROP_CELL_CROP
+    return (f"epilogue crop cell {S.mode_for(key).name} B={b} on {g}x{g} "
+            f"MCUs {w}x{h} crops -> bfloat16 rows into {CROP_CELL_BATCH}")
 
 
 def dequant_name(m: int, wire: int) -> str:
@@ -198,6 +219,7 @@ def geometry_names() -> List[str]:
              for k, key, m, w in GEOMETRIES]
             + [epilogue_name(label, batch)
                for label, batch, *_ in EPILOGUE_GEOMETRIES]
+            + [crop_cell_name(*g) for g in CROP_CELL_GEOMETRIES]
             + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES]
             + [stage_name(stage, m) for stage, m in stage_geometries()]
             + [scaled_name(*g) for g in SCALED_GEOMETRIES]
@@ -286,6 +308,40 @@ def _epilogue_case(torch, mode, batch: tuple, scale: int,
     return fn, raws
 
 
+def _crop_cell_case(torch, key: tuple, b: int, g: int, dev):
+    """``(fn, rotating raw inputs)`` of one of the crop cell's epilogue
+    launches: uniform bytes for ``b`` images of ``g x g`` MCUs, seeded
+    origins over the sub-grid's slack, and seeded destination rows, ``b``
+    of the ``CROP_CELL_BATCH`` rows of one zeroed output."""
+    import numpy as np
+
+    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import raster_epilogue
+    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
+
+    mode = S.mode_for(key)
+    rng = np.random.default_rng(SEED + 13 * g + b)
+    shape = (3, mode.luma_slots, 64, b * g * g)
+    raws = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+            .to(dev) for _ in range(rotation_count(int(np.prod(shape)), dev))]
+    norm = _norm_static(torch.bfloat16, **IMAGENET_NORM)
+    out_h, out_w = CROP_CELL_CROP
+    origins = crop_origins(torch, rng, b, 1,
+                           (g * mode.mcu_px_h, g * mode.mcu_px_w),
+                           CROP_CELL_CROP, dev)
+    rows = torch.from_numpy(rng.permutation(CROP_CELL_BATCH)[:b]
+                            .astype(np.int32)).to(dev)
+    out = torch.zeros((CROP_CELL_BATCH, out_h, out_w, 3),
+                      dtype=torch.bfloat16, device=dev)
+
+    def fn(raw):
+        return raster_epilogue(raw, mode, 1, b, g, g, out_h, out_w, *origins,
+                               norm=norm, rows=rows, out=out)
+
+    return fn, raws
+
+
 def _as_bytes(torch, out) -> bytes:
     """The bytes of a tensor on the card (bfloat16 through its bits)."""
     flat = out.contiguous().view(-1)
@@ -338,6 +394,11 @@ def side() -> dict:
         fn, raws = _epilogue_case(torch, mode, batch, scale, dtype_name,
                                   crop, stats, dev)
         measure(epilogue_name(label, batch), fn, raws)
+        del fn, raws
+        torch.cuda.empty_cache()
+    for key, b, g in CROP_CELL_GEOMETRIES:
+        fn, raws = _crop_cell_case(torch, key, b, g, dev)
+        measure(crop_cell_name(key, b, g), fn, raws)
         del fn, raws
         torch.cuda.empty_cache()
     for m, wire in DEQUANT_GEOMETRIES:

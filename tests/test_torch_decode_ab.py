@@ -33,8 +33,8 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == (16 + 8 + 4 + 4 + 8 + 3 + 3 + 6
-                                             + 3 + 1)
+    assert len(names) == len(set(names)) == (16 + 8 + 2 + 4 + 4 + 8 + 3 + 3
+                                             + 6 + 3 + 1)
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
@@ -43,6 +43,19 @@ def test_epilogue_and_dequantize_geometries_are_named():
     assert "epilogue B=256 256x256 4:2:0 scale 1 -> bfloat16 CLIP" in names
     for size in ("B=256 224x224", "B=256 384x384", "B=64 512x512"):
         assert f"epilogue {size} 4:2:0 scale 1 -> bfloat16" in names
+    # The crop cell's two launches, after the other epilogue geometries:
+    # its usual split, M off the 16-byte grid in both.
+    crop_cell = ["epilogue crop cell 4:2:0 B=225 on 15x15 MCUs 224x224 "
+                 "crops -> bfloat16 rows into 256",
+                 "epilogue crop cell 4:4:4 B=31 on 29x29 MCUs 224x224 "
+                 "crops -> bfloat16 rows into 256"]
+    assert names[16 + 8:16 + 8 + 2] == crop_cell
+    assert sum(b for _, b, _ in A.CROP_CELL_GEOMETRIES) == A.CROP_CELL_BATCH
+    for key, b, g in A.CROP_CELL_GEOMETRIES:
+        assert b * g * g % 16 != 0
+        mode = S.mode_for(key)
+        assert g * mode.mcu_px_h >= A.CROP_CELL_CROP[0]
+        assert g * mode.mcu_px_w >= A.CROP_CELL_CROP[1]
     for m in (16384, 196608):
         for bits in (8, 16):
             assert f"dequant 4:2:0 M={m} int{bits}" in names
@@ -73,7 +86,7 @@ def test_idct_and_colour_geometries_are_named_and_ordered():
     IDCT before the colour stage."""
     names = A.geometry_names()
     assert A.IDCT_GEOMETRIES == A.COLOR_GEOMETRIES == (16384, 196608)
-    assert names[16 + 8 + 4:16 + 8 + 4 + 4] == [
+    assert names[16 + 8 + 2 + 4:16 + 8 + 2 + 4 + 4] == [
         "idct 4:2:0 M=16384 int16", "color 4:2:0 M=16384 int16",
         "idct 4:2:0 M=196608 int16", "color 4:2:0 M=196608 int16"]
     assert A.stage_geometries() == [("idct", 16384), ("color", 16384),
@@ -102,6 +115,10 @@ def _named_runs(us_by_name, digests=None):
     "epilogue B=256 500x375 4:2:0 scale 1 -> float32",
     "epilogue B=256 256x256 4:2:0 scale 1 -> bfloat16 CLIP",
     "epilogue B=256 224x224 4:2:0 scale 1 -> bfloat16",
+    "epilogue crop cell 4:2:0 B=225 on 15x15 MCUs 224x224 crops -> bfloat16 "
+    "rows into 256",
+    "epilogue crop cell 4:4:4 B=31 on 29x29 MCUs 224x224 crops -> bfloat16 "
+    "rows into 256",
     "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8",
     "idct 4:2:0 M=16384 int16", "idct 4:2:0 M=196608 int16",
     "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16",
@@ -193,7 +210,7 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     names = A.geometry_names()
     scaled = [A.scaled_name(*g) for g in A.SCALED_GEOMETRIES]
     stacked = [A.stacked_name(m, w) for m, w in A.STACKED_GEOMETRIES]
-    start = 16 + 8 + 4 + 4
+    start = 16 + 8 + 2 + 4 + 4
     assert names[start:start + 11] == scaled + stacked
     assert names[start + 11:] == (
         [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
