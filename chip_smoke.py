@@ -8,8 +8,9 @@ PATH or /usr/local/cuda/bin, g++ for the host library).  Uses torch, numpy
 and ``pim_jpeg_decoder_tpu_torch`` only (its own host layer, oracle and
 encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
 
-1. device: card name and power limit, build of ``csrc/*.cu``, native host
-   library present;
+1. device: card name and power limit, build of ``csrc/*.cu`` (``nvcc.log``
+   naming the instantiations of ``INSTANTIATIONS``), native host library
+   present;
 2. each kernel against its plain PyTorch version on the card, byte for byte
    (tolerance 0: the decode spec is integer, and the epilogue rounds the
    same float32 values once): the full-scale RGB, YCbCr and scaled RGB
@@ -74,13 +75,11 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    takes a device list over two shards of the one card (``[3 multi]``:
    the engine on both transports, the single-image APIs, the B=256
    batches, the crop batch and a mixed-mode crop batch, each equal to the
-   oracle or to one device,
-   every shard launching), with the engine's MP/s and the batch path's
-   images/s against one device, the host concatenation of two shards
-   against their D2H, and two gloo ranks of ``tools.scaling_bench``; the
-   port's differential fuzz campaign (``[3 fuzz]``: ``tools.fuzz.run`` in
-   this process on the card, seed ``FUZZ_SEED``, ``FUZZ_ITERATIONS``
-   iterations of random engine geometries, batch, stream, device-list,
+   oracle or to one device, every shard launching, and two gloo ranks of
+   ``tools.scaling_bench``); the port's differential fuzz campaign
+   (``[3 fuzz]``: ``tools.fuzz.run`` in this process on the card, seed
+   ``FUZZ_SEED``, ``FUZZ_ITERATIONS`` iterations of random engine
+   geometries, batch, stream, device-list,
    crop and table checks: no mismatch, every check drawn, the decode
    kernels and the epilogue launched); the host-decode tools on this
    machine's host (``[3 host]``: ``tools.entropy_bench``, with ``--prog``
@@ -92,39 +91,12 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    butterfly and the three tensor-core variants, each within its
    tolerance) and ``tools.vlc_bench`` (exact), their kernels launched (the
    IDCT tool in two runs, mxu2pass4 alone in the second, so that pieces 2
-   has a launch count of its own);
-4. kernel and plain-version times with CUDA events
-   (``utils/devbench.seconds_per_launch``, 10 rotating inputs past the 50
-   MB L2; median with min and max), each kernel's bound (the larger of its
-   bytes over 3.35 TB/s and its operations over their peak rate) and, for
-   the tensor-core IDCT, ``torch.matmul`` yardsticks with TF32 allowed;
-   the IDCT A/B (butterfly, mxu2pass, mxu2pass4, mxu64) at the tool's
-   geometry and the VLC kernel beside a 4-byte ``fill_`` launch (the
-   card's floor for any launch); the ``tools/stage_profile`` record
-   (staged sum, fused time, fusion ratio), the ``tools.kernel_opt`` record
-   and rgb_kernel's GB/s as a share of the floor's (``memfloor_kernel``:
-   the tiled decode kernels' pattern, a 32-MCU tile copied into shared
-   memory and 16-byte row stores, with the decode taken out, so a share
-   over 100% is printed as a finding; int16 and int8
-   wire, from that one run) and over the tool's launch sizes
-   (``kernel_opt.sweep``, 2,048 to 196,608 MCUs), the engine's end-to-end
-   MP/s on the corpus, the batch path's images/s and MP/s, and the device
-   busy share of one traced run of each; ``rgb_kernel`` and
-   ``ycbcr_kernel`` in every mode at M=16,384 (int8) and at 4:2:0
-   M=196,608 (both wires) against their bounds, and each one's registers
-   (``nvcc.log``), dynamic shared memory, blocks an SM (occupancy
-   calculator) and SASS instructions an MCU (``cuobjdump -sass``); the
-   raster epilogue at the B=256 batch's two geometries and as 224x224
-   crops of it, each against its bound; the scaled RGB kernel at 4:2:0
-   scale 2, 4 and 8 and the stacked kernel beside ``rgb_kernel`` at
-   M=16,384 and 196,608 on both wires, each against its bound (the scaled
-   kernel's counted in the least exact form, the matrix-form count
-   beside it); and the registers, shared memory and blocks an SM of the
-   epilogue's, the stage kernels', the scaled, stacked and truerez
-   kernels', the memory floor's, mxu2pass's and mxu64's instantiations
-   (with SASS counts for truerez and the floor at 4:2:0, for mxu2pass and
-   for mxu64); the floor and mxu64 also at M=196,608 against their bounds
-   (mxu64 beside its TF32 ``torch.matmul`` yardstick).
+   has a launch count of its own).
+
+It checks and does not time: the benchmark (``perfbench/``) measures the
+cells and the kernels' rooflines, and
+``pim_jpeg_decoder_tpu_torch/tools/decode_ab.py --parent`` times kernels
+against another checkout.
 
 ``python3 chip_smoke.py --cards`` (a machine with two cards or more)
 runs only phase 1, each kernel that prepares attributes on every card
@@ -187,8 +159,6 @@ KERNELS = {
             "tools/tpu_vlc_bench.py:38"),
 }
 JSON_NAMES = {"raster": "raster_epilogue",
-              "raster_scale2": "raster_epilogue (scale 2 -> bfloat16)",
-              "raster_crops": "raster_epilogue (224x224 crops -> bfloat16)",
               "dequant": "stage_dequantize",
               "idct": "stage_idct", "color": "stage_color",
               "memfloor": "kernel_opt_memfloor",
@@ -197,9 +167,7 @@ JSON_NAMES = {"raster": "raster_epilogue",
               "mxu2pass": "mxu_idct_2pass",
               "mxu2pass4": "mxu_idct_2pass4 (pieces 2)",
               "mxu64": "mxu_idct_64",
-              "vlc": "vlc_symbol_loop",
-              "memfloor_196608": "kernel_opt_memfloor (M=196608 int16)",
-              "mxu64_196608": "mxu_idct_64 (M=196608)"}
+              "vlc": "vlc_symbol_loop"}
 STAGES = ("dequant", "idct", "color")
 KERNEL_OPT_COUNTERS = ("memfloor", "truerez", "stacked")
 IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
@@ -211,118 +179,18 @@ IMAGENET_NORM = dict(mean=(123.675, 116.28, 103.53),
 MXU_TOLERANCE = {"mxu2pass": (2, 0.04), "mxu2pass4": (0, 0.0),
                  "mxu64": (2, 0.03)}
 
-# --- the least time the card could take (bound_ms) ----------------------------
-# Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s, TF32
-# and float32 (outside the tensor cores) FLOP/s.  The sheet gives no
-# integer rate.  Its 67 TFLOP/s count an FMA as two operations on the 128
-# lanes an SM issues to each clock (4 schedulers, one warp instruction
-# each); no instruction mix issues more, so integer operations peak at half
-# of it (integer multiplies and adds share that issue rate).
-HBM_BYTES_PER_S = 3.35e12
-TF32_FLOPS = 495e12
-FP32_FLOPS = 67e12
-INT32_OPS = FP32_FLOPS / 2
-# Integer operations of the decode spec, counted from its code: one
-# idct_1d pass is 56 (16 even part, 24 odd part, 8 adds and 8 shifts out),
-# a block 16 passes and 2 x 64 clamps; dequantize a multiply and 2 clamps a
-# coefficient; BT.601 (bt601_planes) 21 an RGB pixel (level shift 1; R, B:
-# multiply, bias, shift, add, 2 clamps; G: 2 multiplies, 2 adds, shift,
-# add, 2 clamps).
-IDCT_BLOCK_OPS = 16 * 56 + 2 * 64
-DEQUANT_BLOCK_OPS = 3 * 64
-COLOR_PIXEL_OPS = 21
-# Integer operations one VLC symbol needs at least: the window 2 (word
-# index; one funnel shift of the two words, which takes the shift mod 32 and
-# gives the first word at shift 0), the probe 1 (top 8 bits), the entry's
-# fields 2 (advance, value) once the table is folded to advance | value << 8
-# (256 entries once, against 8,639 symbols), the sums 3 (acc, position,
-# nsym), the loop's test 1.  The loads are the bytes' share.
-VLC_SYMBOL_OPS = 9
-
-
-def reduced_pass_ops(n: int) -> int:
-    """Integer operations of the sums of one n-point reduced pass in its
-    least exact form, the even/odd split of the rounded basis
-    (``rgb_scaled_kernel``'s ``reduced_sums``): the n/2-point pass of the
-    even inputs, (n/2)^2 multiplies and n/2 (n/2 - 1) adds for the odd
-    sums, n adds to combine them; one multiply at n = 1."""
-    if n == 1:
-        return 1
-    h = n // 2
-    return reduced_pass_ops(h) + h * h + h * (h - 1) + n
-
-
-def reduced_idct_ops(ny: int, nx: int) -> int:
-    """Integer operations of one reduced IDCT to ny x nx samples in its
-    least exact form: each pass's sums (``reduced_pass_ops``) and a descale
-    (2) an output, then 2 clamps a sample."""
-    return (nx * (reduced_pass_ops(ny) + 2 * ny)
-            + ny * (reduced_pass_ops(nx) + 2 * nx) + 2 * ny * nx)
-
-
-def matrix_idct_ops(ny: int, nx: int) -> int:
-    """Integer operations of the same IDCT in the matrix form
-    (decode_kernel._reduced_pass): each output a sum of products over its
-    pass (2n - 1) and a descale (2), then 2 clamps a sample."""
-    return nx * ny * (2 * ny + 1) + ny * nx * (2 * nx + 1) + 2 * ny * nx
-
-
-def scaled_mcu_counts(mode, scale: int, wire_bytes: int,
-                      matrix_form: bool = False):
-    """``(bytes, operations)`` an MCU of the scaled decode.  Bytes: the
-    32-byte sectors that hold the coefficients the reduced IDCTs read
-    (rows 0..n-1 of a luma block, 0..v*n-1 of a chroma block), qidx and the
-    output.  Operations: a dequantize (3) of each coefficient read, the
-    reduced IDCTs in their least exact form and BT.601 (21 a pixel; gray a
-    level shift).  ``matrix_form``: the count kept beside it, the whole
-    wire read, all 64 coefficients dequantized and the IDCTs in the matrix
-    form."""
-    n = 8 // scale
-    gy = mode.luma_slots
-    cy, cx = mode.v * n, mode.h * n
-    chroma = 2 if mode.ncomp == 3 else 0
-
-    def sectors(rows: int) -> int:
-        return -(-rows * 8 * wire_bytes // 32) * 32
-
-    if matrix_form:
-        wire = mode.g * 64 * wire_bytes
-        idct = gy * matrix_idct_ops(n, n) + chroma * matrix_idct_ops(cy, cx)
-        deq = mode.g * DEQUANT_BLOCK_OPS
-    else:
-        wire = gy * sectors(n) + chroma * sectors(cy)
-        idct = gy * reduced_idct_ops(n, n) + chroma * reduced_idct_ops(cy, cx)
-        deq = 3 * (gy * n * n + chroma * cy * cx)
-    colour = gy * n * n * (COLOR_PIXEL_OPS if chroma else 1)
-    return wire + 3 * gy * n * n + 4, idct + deq + colour
-
-
-def scaled_bound(mode, scale: int, m: int, wire_bytes: int, q: int = 16,
-                 matrix_form: bool = False):
-    """The bound of one scaled decode launch of ``m`` MCUs with a Q-row
-    pool (read once): ``scaled_mcu_counts`` times ``m``."""
-    nbytes, ops = scaled_mcu_counts(mode, scale, wire_bytes, matrix_form)
-    return bound(m * nbytes + q * mode.g * 64 * 4, m * ops)
-
-
-def bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS):
-    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
-    rate and the operations over their peak rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops
-            else (t_ops, "operations"))
-
-
-def timing(kernel_band, plain_band, bound_pair, library_ms=None) -> dict:
-    """The kernels-line numbers of one kernel from this run."""
-    return {"ms": kernel_band[0], "plain_ms": plain_band[0],
-            "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
-            "library_ms": library_ms}
-
-
-def bound_note(bound_pair) -> str:
-    return f"bound {bound_pair[0] * 1e3:.2f} us ({bound_pair[1]})"
+# Instantiations of each templated kernel that nvcc.log must name.
+# Epilogue: 4 output types x banded n 8/4/2/1 x h 1/2, and the row form at
+# n 8 h 2; dequantize: 2 wires x g 1/3/4/6; colour: 5 modes x 8-byte/byte
+# stores; scaled: 5 modes x 2 wires x scale 2/4/8 x 16-byte/byte stores;
+# stacked and truerez: 4 colour modes x 2 wires x 16-byte/byte stores;
+# mxu2pass: pieces 1 and 2; the floor: 1, 2 and 4 luma slots x 2 wires x
+# 16-byte/byte stores.
+INSTANTIATIONS = {"raster_epilogue_kernel": 36, "dequant_stage_kernel": 8,
+                  "idct_stage_kernel": 1, "color_stage_kernel": 10,
+                  "rgb_scaled_kernel": 60, "rgb_stacked_kernel": 16,
+                  "rgb_truerez_kernel": 16, "mxu2pass_kernel": 2,
+                  "memfloor_kernel": 12, "mxu64_kernel": 1}
 
 
 def fail(msg: str) -> None:
@@ -357,9 +225,16 @@ def phase_device(torch, card: str) -> None:
         log = f.read()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+    entries = re.findall(r"Compiling entry function '(\S+)'", log)
+    found = {name: sum(name in e for e in entries) for name in INSTANTIATIONS}
+    if found != INSTANTIATIONS:
+        fail(f"nvcc.log names {found} instantiations, expected "
+             f"{INSTANTIATIONS}")
     print(f"[1 device] kernels built in {build_s:.1f} s ({path}); ptxas: "
           f"{len(regs)} kernels, max {max(regs, default=0)} registers, "
-          f"max {max(spills, default=0)} bytes spill stores", flush=True)
+          f"max {max(spills, default=0)} bytes spill stores; instantiations "
+          f"as expected ({sum(found.values())} of {len(found)} kernels)",
+          flush=True)
     if not native_available():
         fail("native C++ host library unavailable (g++ missing?)")
 
@@ -889,13 +764,11 @@ def crop_cell_epilogue_case(torch, dev, rng) -> int:
     one output of 256 images, origins drawn over each sub-grid's slack and,
     for every eighth image and the last, at its far edge, so that the last
     image's last band reads the input's final granule.  Every launch must
-    count as shifted (``raster_shifted``); prints the blocks an SM and the
-    band's shared memory at each geometry's row width."""
+    count as shifted (``raster_shifted``)."""
     from pim_jpeg_decoder_tpu_torch.ops import specs as S
     from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _norm_static
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        band_row_bytes, launch_counts, raster_epilogue,
-        raster_epilogue_reference, raster_occupancy)
+        launch_counts, raster_epilogue, raster_epilogue_reference)
     from pim_jpeg_decoder_tpu_torch.tools.decode_ab import (
         CROP_CELL_BATCH, CROP_CELL_GEOMETRIES)
 
@@ -931,14 +804,6 @@ def crop_cell_epilogue_case(torch, dev, rng) -> int:
             want = raster_epilogue_reference(raw, mode, 1, b, g, g, 224, 224,
                                               *origins, norm=norm, rows=dst,
                                               out=want)
-            if split is CROP_CELL_GEOMETRIES:
-                row_bytes = band_row_bytes(g, True)
-                blocks, smem = raster_occupancy(mode, 1, torch.bfloat16,
-                                                row_bytes=row_bytes)
-                print(f"[2 kernels] crop cell epilogue {mode.name} B={b} on "
-                      f"{g}x{g} MCUs (M % 16 = {b * g * g % 16}): "
-                      f"{row_bytes}-byte band rows, {smem} B dynamic shared "
-                      f"memory, {blocks} blocks/SM", flush=True)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             groups = ", ".join(f"{S.mode_for(k).name} B={b} {g}x{g}"
@@ -1565,61 +1430,6 @@ def shard_launches(report) -> int:
             + report.one_device_batches)
 
 
-def engine_mps(torch, engine, paths, runs: int = 3):
-    """MP/s of ``runs`` synchronised engine runs writing BMPs (after a
-    warm one), and the last report."""
-    engine.decode_paths(paths, write=True)
-    rates = []
-    for _ in range(runs):
-        t0 = time.monotonic()
-        report = engine.decode_paths(paths, write=True)
-        torch.cuda.synchronize()
-        rates.append(report.total_megapixels / (time.monotonic() - t0))
-    return rates, report
-
-
-def concat_costs(torch, dev, card: str) -> None:
-    """The host concatenation that a gather of the engine's shards would
-    cost, beside the D2H of those shards (pinned, one buffer each)."""
-    from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.parallel.sharding import (
-        decode_mcus_sharded, to_host)
-
-    mode = S.mode_for((2, 2, 3))
-    rng = np.random.default_rng(SEED + 6)
-    for m in (16384, 65536):     # the engine's packed and big launches
-        coeffs, qidx, qpool = synthetic_batch(mode, m, np.int8, rng,
-                                              extreme=False)
-        for ycbcr in (True, False):
-            outs = decode_mcus_sharded(coeffs, qidx, qpool, mode,
-                                       [dev, dev], raw=not ycbcr,
-                                       ycbcr=ycbcr)
-            d2h, cat = [], []
-            for _ in range(7):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                host, done = to_host(outs)
-                for event in done:
-                    if event is not None:
-                        event.synchronize()
-                d2h.append(time.perf_counter() - t0)
-                shards = [h.numpy() for h in host]
-                t0 = time.perf_counter()
-                np.concatenate(shards, axis=-1)
-                cat.append(time.perf_counter() - t0)
-            d2h_s, cat_s = statistics.median(d2h), statistics.median(cat)
-            mb = sum(o.numel() for o in outs) / 1e6
-            print(f"[3 multi] host concatenation of 2 shards, 4:2:0 M={m} "
-                  f"{'ycbcr' if ycbcr else 'rgb'} ({mb:.1f} MB): "
-                  f"{cat_s:.6f} s (median of 7; min {min(cat):.6f}) against "
-                  f"the shards' D2H {d2h_s:.6f} s (min {min(d2h):.6f}), "
-                  f"{cat_s / d2h_s:.2f}x | {card}", flush=True)
-    print("[3 multi] the engine concatenates no shards: each image is "
-          "finished from the shard buffer that holds it, and only an image "
-          "that straddles two shards is joined, by a copy of its own MCUs "
-          "(parallel/sharding.mcu_window)", flush=True)
-
-
 def visible_card(index: int) -> str:
     """``CUDA_VISIBLE_DEVICES`` for a child that sees only this process's
     card ``index``."""
@@ -1889,41 +1699,6 @@ def phase_multi(torch, dev, devices, card: str, root: str, tmp: str, paths,
           f"device; launches rgb={counts['rgb']} raster={counts['raster']}",
           flush=True)
 
-    one_rates, one_rep = engine_mps(torch, DecodeEngine(device=dev), paths)
-    two_rates, two_rep = engine_mps(torch, DecodeEngine(device=two), paths)
-    print(f"[3 multi] engine e2e on the corpus, BMPs written, MP/s: one "
-          f"device {', '.join(f'{r:.1f}' for r in one_rates)} (median "
-          f"{statistics.median(one_rates):.1f}); [{names}] "
-          f"{', '.join(f'{r:.1f}' for r in two_rates)} (median "
-          f"{statistics.median(two_rates):.1f}). d2h / write seconds of the "
-          f"last run: "
-          f"{one_rep.timers.snapshot()['d2h'][0]:.3f} / "
-          f"{one_rep.timers.snapshot()['write'][0]:.3f} against "
-          f"{two_rep.timers.snapshot()['d2h'][0]:.3f} / "
-          f"{two_rep.timers.snapshot()['write'][0]:.3f} | {card}", flush=True)
-
-    def batch_rate(devices) -> float:
-        t0 = time.monotonic()
-        n = 0
-        for out, headers in iter_decode_batches(
-                ([blobs[i] for i in idx] for idx in order), device=devices):
-            n += len(headers)
-        torch.cuda.synchronize()
-        return n / (time.monotonic() - t0)
-
-    rates = {"one": [], "two": []}
-    for _ in range(3):
-        rates["one"].append(batch_rate(dev))
-        rates["two"].append(batch_rate(two))
-    print(f"[3 multi] iter_decode_batches {len(order)} x B=256, scale 1 "
-          f"uint8, images/s: one device "
-          f"{', '.join(f'{r:.0f}' for r in rates['one'])} (median "
-          f"{statistics.median(rates['one']):.0f}); [{names}] "
-          f"{', '.join(f'{r:.0f}' for r in rates['two'])} (median "
-          f"{statistics.median(rates['two']):.0f}), in turns | {card}",
-          flush=True)
-    if len(set(two)) == 1:
-        concat_costs(torch, dev, card)
     scaling_ranks(devices, root, tmp, card)
     print(f"[3 multi] phase wall {time.monotonic() - t_phase:.1f} s",
           flush=True)
@@ -2074,8 +1849,7 @@ def phase_tool():
     """``python -m pim_jpeg_decoder_tpu_torch.tools.kernel_opt`` in this
     process, with the launch counts set to 0 just before it and read just
     after: every variant bit-exact, each kernel_opt kernel launched, no
-    plain version on the card.  Returns the tool's JSON record and the
-    counts."""
+    plain version on the card.  Returns the counts."""
     import io
 
     from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
@@ -2107,7 +1881,7 @@ def phase_tool():
           + " ".join(f"{k}={counts[k]}" for k in (
               "rgb", *KERNEL_OPT_COUNTERS, "plain_on_cuda")),
           flush=True)
-    return record, counts
+    return counts
 
 
 def phase_ab_tools() -> dict:
@@ -2168,971 +1942,22 @@ def phase_ab_tools() -> dict:
     return found
 
 
-# --- phase 4 -----------------------------------------------------------------
-
-def time_band(fn, bufs, runs: int = 30):
-    """(median, min, max) ms per launch from the per-launch samples of
-    ``utils/devbench.seconds_per_launch``."""
-    from pim_jpeg_decoder_tpu_torch.utils.devbench import seconds_per_launch
-
-    ms = sorted(t * 1e3 for t in seconds_per_launch(fn, bufs, runs=runs,
-                                                     samples=True))
-    return statistics.median(ms), ms[0], ms[-1]
-
-
-def us_band(band) -> str:
-    med, lo, hi = band
-    return f"{med * 1e3:.1f} us (min {lo * 1e3:.1f}, max {hi * 1e3:.1f})"
-
-
-def floor_note(floor_us: float, prod_us: float, what: str) -> str:
-    """rgb_kernel's share of the floor's GB/s (the floor's time over
-    rgb_kernel's), and a finding where rgb_kernel is the faster."""
-    share = 100 * floor_us / prod_us
-    if share <= 100:
-        return f"{share:.1f}%"
-    return (f"{share:.1f}% -- FINDING: rgb_kernel beats the floor of its own "
-            f"pattern at {what}")
-
-
-def floor_shares(record: dict, card: str) -> None:
-    """rgb_kernel against the memory floor of ``tools.kernel_opt``, from
-    the tool's one run (same call, same rotation): the floor's time over
-    rgb_kernel's is rgb_kernel's GB/s as a share of the floor's.  The
-    floor (``memfloor_kernel``) moves the same bytes in the pattern of the
-    tiled decode kernels (a 32-MCU tile copied into shared memory, 16-byte
-    row stores) with the decode taken out, so a share over 100% is a
-    finding about the floor."""
-    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
-
-    print(f"[4 times] tools.kernel_opt record: {json.dumps(record)} | {card}",
-          flush=True)
-    m, mode = kernel_opt.M, kernel_opt.MODE
-    out_mb = 3 * mode.luma_slots * 64 * m / 1e6
-    for wire, nbytes, floor, prod in (("int16", 2, "memfloor", "prod"),
-                                      ("int8", 1, "memfloor_i8", "prod_i8")):
-        mb = m * mode.g * 64 * nbytes / 1e6 + out_mb
-        f_us, p_us = record[floor]["us"], record[prod]["us"]
-        print(f"[4 times] rgb_kernel vs the tiled-pattern memory floor, "
-              f"4:2:0 M={m} {wire} "
-              f"wire ({mb:.1f} MB): floor {f_us} us ({mb / f_us * 1e3:.0f} "
-              f"GB/s), rgb_kernel {p_us} us ({mb / p_us * 1e3:.0f} GB/s): "
-              f"{floor_note(f_us, p_us, f'M={m} {wire}')} of the floor's "
-              f"GB/s | {card}", flush=True)
-
-
-def floor_sweep(torch, card: str) -> None:
-    """``tools.kernel_opt.sweep()``: every variant at each launch size of
-    ``SWEEP_M``, each bit-exact, with rgb_kernel's share of the
-    tiled-pattern floor; then whether the floor is the faster at every
-    size on both wires (the floor property), each size where it is not
-    printed as a finding with the margin."""
-    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt
-
-    t0 = time.monotonic()
-    table = kernel_opt.sweep()
-    torch.cuda.empty_cache()
-    mode = kernel_opt.MODE
-    misses = []
-    for m, record in table.items():
-        inexact = [n for n, r in record.items() if r["bit_exact"] is not True]
-        if inexact:
-            fail(f"tools.kernel_opt sweep at M={m}: not bit-exact: {inexact}")
-        us = {n: r["us"] for n, r in record.items()}
-        mb = m * (mode.g * 64 * 2 + 3 * mode.luma_slots * 64) / 1e6
-        misses += [f"M={m} {wire}: floor {us[f]} us, rgb_kernel {us[p]} us "
-                   f"(+{100 * (us[f] / us[p] - 1):.1f}%)"
-                   for wire, f, p in (("int16", "memfloor", "prod"),
-                                      ("int8", "memfloor_i8", "prod_i8"))
-                   if us[f] > us[p]]
-        print(f"[4 times] kernel_opt sweep 4:2:0 M={m} (floor: "
-              f"{-(-m // 32)} tiles of 32), us int16 [int8]: floor "
-              f"{us['memfloor']} [{us['memfloor_i8']}] "
-              f"({mb / us['memfloor'] * 1e3:.0f} GB/s of {mb:.1f} MB int16), "
-              f"rgb_kernel {us['prod']} [{us['prod_i8']}], truerez "
-              f"{us['chroma_truerez']}, stacked {us['stacked']}; rgb_kernel "
-              f"at {floor_note(us['memfloor'], us['prod'], f'M={m} int16')} "
-              f"[{floor_note(us['memfloor_i8'], us['prod_i8'], f'M={m} int8')}]"
-              f" of the floor's GB/s | {card}", flush=True)
-    print(f"[4 times] kernel_opt sweep: {len(table)} launch sizes, every "
-          f"variant bit-exact, in {time.monotonic() - t0:.1f} s; the floor "
-          + ("is no slower than rgb_kernel at every size on both wires"
-             if not misses else "FINDING: slower than rgb_kernel at "
-             + "; ".join(misses)) + f" | {card}", flush=True)
-
-
-def phase_times(torch, dev, card: str, paths) -> dict:
-    from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        coeffs_to_device, decode_mcus, decode_mcus_reference,
-        qpool_to_device)
-    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import KERNELS
-    from pim_jpeg_decoder_tpu_torch.runtime.engine import DecodeEngine
-    from pim_jpeg_decoder_tpu_torch.tools.stage_profile import profile
-
-    mode = S.mode_for((2, 2, 3))
-    m = 16384
-    rng = np.random.default_rng(SEED + 2)
-    times = {}
-    for wire in (np.int8, np.int16):
-        bufs = []
-        for _ in range(10):   # 10 x (6.3 or 12.6) MB of input: past the L2
-            c, qi, qp = synthetic_batch(mode, m, wire, rng, extreme=False)
-            bufs.append((coeffs_to_device(c, dev),
-                         torch.from_numpy(qi).to(dev),
-                         qpool_to_device(qp, dev)))
-        mb_in = bufs[0][0].numel() * bufs[0][0].element_size() / 1e6
-        cases = {name: (lambda b, yc=name == "ycbcr": decode_mcus(
-                            *b, mode, raw=True, ycbcr=yc),
-                        lambda b, yc=name == "ycbcr": decode_mcus_reference(
-                            *b, mode, raw=True, ycbcr=yc))
-                 for name in ("rgb", "ycbcr")}
-        for name in KERNEL_OPT_COUNTERS:
-            kernel, plain = KERNELS[name]
-            cases[name] = (lambda b, f=kernel: f(*b, mode),
-                           lambda b, f=plain: f(*b, mode))
-        # qidx and the quantizer pool, read once.
-        side = (bufs[0][1].numel() + bufs[0][2].numel()) * 4
-        decode_ops = m * mode.g * (IDCT_BLOCK_OPS + DEQUANT_BLOCK_OPS)
-        rgb_ops = decode_ops + m * mode.luma_slots * 64 * COLOR_PIXEL_OPS
-        ops = {"rgb": rgb_ops, "truerez": rgb_ops, "stacked": rgb_ops,
-               "ycbcr": decode_ops + m * mode.g * 64,   # + 128 level shift
-               "memfloor": m * mode.luma_slots * 64 * 2}
-        for name, (kernel, plain) in cases.items():
-            k = time_band(kernel, bufs)
-            p = time_band(plain, bufs, runs=20)
-            wname = np.dtype(wire).name
-            mb_out = (mode.g if name == "ycbcr"
-                      else 3 * mode.luma_slots) * 64 * m / 1e6
-            b = bound((mb_in + mb_out) * 1e6 + side, ops[name])
-            if wire is np.int8:
-                times[name] = timing(k, p, b)
-            print(f"[4 times] {name} kernel 4:2:0 M={m} {wname} wire: "
-                  f"{us_band(k)}/launch ({(mb_in + mb_out) / k[0]:.0f} GB/s "
-                  f"of {mb_in + mb_out:.1f} MB; {bound_note(b)}); plain "
-                  f"PyTorch {us_band(p)}; 30/20 launches over 10 rotating "
-                  f"inputs | {card}", flush=True)
-        if wire is np.int16:
-            stage_times(torch, mode, bufs, times, card)
-        del bufs
-    torch.cuda.empty_cache()
-    record = profile(dev)
-    print(f"[4 times] tools/stage_profile (4:2:0, M={m}, int16, Q=16): "
-          f"{json.dumps(record)} | {card}", flush=True)
-
-    engine = DecodeEngine(device=dev)
-    engine.decode_paths(paths, write=False)        # warm: pools, allocator
-    mps, walls = [], []
-    for _ in range(3):
-        t0 = time.monotonic()
-        report = engine.decode_paths(paths, write=True)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        if report.ok_count != len(paths):
-            fail("engine failed files during the timed runs")
-        walls.append(wall)
-        mps.append(report.total_megapixels / wall)
-    stages = report.timers.snapshot()
-    print(f"[4 times] engine e2e on the corpus ({len(paths)} JPEGs, "
-          f"{report.total_megapixels:.2f} MP, BMPs written): MP/s "
-          f"{', '.join(f'{x:.1f}' for x in mps)} (median "
-          f"{statistics.median(mps):.1f}); host stage seconds of the last "
-          f"run: " + ", ".join(f"{k} {v[0]:.3f}" for k, v in stages.items())
-          + f" | {card}", flush=True)
-    busy = device_busy(torch, lambda: engine.decode_paths(paths, write=True),
-                       "engine run")
-    print(f"[4 times] {busy} | {card}", flush=True)
-    return times
-
-
-def decode_bound(mode, m: int, wire_bytes: int, name: str):
-    """The bound of one full-scale decode launch (``name`` rgb or ycbcr):
-    the wire in, qidx and a Q=16 pool once, the output out; the spec's
-    integer operations (gray RGB: a level shift a pixel)."""
-    nbytes = (m * mode.g * 64 * wire_bytes + m * 4 + 16 * mode.g * 64 * 4
-              + (mode.g if name == "ycbcr" else 3 * mode.luma_slots) * 64 * m)
-    ops = m * mode.g * (IDCT_BLOCK_OPS + DEQUANT_BLOCK_OPS)
-    if name == "ycbcr":
-        ops += m * mode.g * 64
-    else:
-        ops += m * mode.luma_slots * 64 * (COLOR_PIXEL_OPS if mode.ncomp == 3
-                                           else 1)
-    return bound(nbytes, ops)
-
-
-def tile_times(torch, dev, card: str) -> dict:
-    """rgb_kernel and ycbcr_kernel where the main path runs them: every
-    mode at M=16,384 on the int8 wire, and 4:2:0 at M=196,608 (a B=256
-    batch) on both wires; each against its bound.  Returns the M=16,384
-    int8 medians by (kernel, mode name)."""
-    from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        coeffs_to_device, decode_mcus, qpool_to_device)
-    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
-
-    rng = np.random.default_rng(SEED + 5)
-    geoms = [(key, 16384, np.int8) for key in sorted(S.MODES)]
-    geoms += [((2, 2, 3), 196608, w) for w in (np.int8, np.int16)]
-    medians = {}
-    for key, m, wire in geoms:
-        mode = S.mode_for(key)
-        wb = np.dtype(wire).itemsize
-        bufs = []
-        for _ in range(max(2, rotation_count(m * mode.g * 64 * wb, dev))):
-            c, qi, qp = synthetic_batch(mode, m, wire, rng, extreme=False)
-            bufs.append((coeffs_to_device(c, dev),
-                         torch.from_numpy(qi).to(dev),
-                         qpool_to_device(qp, dev)))
-        for name in ("rgb", "ycbcr"):
-            k = time_band(lambda b, yc=name == "ycbcr": decode_mcus(
-                *b, mode, raw=True, ycbcr=yc), bufs)
-            b = decode_bound(mode, m, wb, name)
-            if m == 16384:
-                medians[(name, mode.name)] = k[0]
-            print(f"[4 times] {name}_kernel {mode.name} M={m} "
-                  f"{np.dtype(wire).name}: {us_band(k)}/launch; "
-                  f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound; "
-                  f"30 launches over {len(bufs)} rotating inputs | {card}",
-                  flush=True)
-        del bufs
-        torch.cuda.empty_cache()
-    return medians
-
-
-def scaled_stacked_times(torch, dev, card: str) -> None:
-    """rgb_scaled_kernel at 4:2:0 scale 2, 4 and 8, and rgb_stacked_kernel
-    beside rgb_kernel on the same inputs, at M=16,384 and 196,608 on both
-    wires (Laplace(0, 6) coefficients, Q=16, rotated past the L2); each
-    against its bound and its share (the scaled kernel's recounted bound,
-    the matrix-form count beside it)."""
-    from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        coeffs_to_device, decode_mcus, qpool_to_device)
-    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import rgb_stacked
-    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
-
-    rng = np.random.default_rng(SEED + 6)
-    mode = S.mode_for((2, 2, 3))
-    for m in (16384, 196608):
-        for wire in (np.int8, np.int16):
-            wb = np.dtype(wire).itemsize
-            bufs = []
-            for _ in range(max(2, rotation_count(m * mode.g * 64 * wb, dev))):
-                c, qi, qp = synthetic_batch(mode, m, wire, rng, extreme=False)
-                bufs.append((coeffs_to_device(c, dev),
-                             torch.from_numpy(qi).to(dev),
-                             qpool_to_device(qp, dev)))
-            what = f"4:2:0 M={m} {np.dtype(wire).name}"
-            for scale in (2, 4, 8):
-                k = time_band(lambda b: decode_mcus(
-                    *b, mode, raw=True, scale=scale), bufs)
-                b = scaled_bound(mode, scale, m, wb)
-                old = scaled_bound(mode, scale, m, wb, matrix_form=True)
-                print(f"[4 times] rgb_scaled_kernel {what} scale {scale}: "
-                      f"{us_band(k)}/launch; {bound_note(b)}, "
-                      f"{100 * b[0] / k[0]:.1f}% of the bound (matrix-form "
-                      f"{bound_note(old)}, {100 * old[0] / k[0]:.1f}%); 30 "
-                      f"launches over {len(bufs)} rotating inputs | {card}",
-                      flush=True)
-            st = time_band(lambda b: rgb_stacked(*b, mode), bufs)
-            rgb = time_band(lambda b: decode_mcus(*b, mode, raw=True), bufs)
-            b = decode_bound(mode, m, wb, "rgb")
-            print(f"[4 times] rgb_stacked_kernel {what}: {us_band(st)}/launch,"
-                  f" {100 * b[0] / st[0]:.1f}% of the {bound_note(b)}; "
-                  f"rgb_kernel on the same inputs {us_band(rgb)}, "
-                  f"{100 * b[0] / rgb[0]:.1f}%: stacked/rgb "
-                  f"{st[0] / rgb[0]:.3f} | {card}", flush=True)
-            del bufs
-            torch.cuda.empty_cache()
-
-
-# Opcode roots of the integer-ALU pipe, the FMA pipe (IMAD) and memory.
-SASS_ALU = ("IADD3", "LOP3", "SHF", "VIMNMX", "IMNMX", "SEL", "LEA", "PRMT",
-            "ISETP", "VIADD", "IABS", "SGXT")
-SASS_MEM = ("LDS", "STS", "LDG", "STG", "LDGSTS", "LDC")
-
-
-def sass_counts(lib_path: str) -> dict:
-    """``{mangled kernel name: Counter of opcode roots}`` from
-    ``cuobjdump -sass`` of the built library (NOPs left out)."""
-    from collections import Counter
-
-    from pim_jpeg_decoder_tpu_torch.ops import _build
-
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
-    counts = {}
-    for body in re.split(r"\n\s+Function : ", proc.stdout)[1:]:
-        name, _, code = body.partition("\n")
-        ops = re.findall(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", code)
-        counts[name.strip()] = Counter(o for o in ops if o != "NOP")
-    return counts
-
-
-def tile_resources(torch, card: str, medians: dict, sass: dict) -> None:
-    """Registers (ptxas, ``nvcc.log``), dynamic shared memory and blocks an
-    SM holds (the occupancy calculator) of each full-scale tile kernel,
-    and its SASS: instructions, of which integer-ALU, IMAD and memory, per
-    MCU (every loop is unrolled, so a warp runs each instruction at most
-    once a tile: TILE_THREADS / 32 warps over TILE_MCUS MCUs), and the
-    time those would take at M=16,384 issued at one warp instruction a
-    clock on each of an SM's 4 schedulers at the maximum SM clock; the
-    same SASS accounting of the scaled kernel at 4:2:0 scale 2."""
-    from pim_jpeg_decoder_tpu_torch.ops import _build
-    from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        TILE_MCUS, TILE_THREADS, tile_occupancy)
-
-    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
-        log = f.read()
-    regs = dict(re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) "
-                           r"registers", log, flags=re.S))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = max_sm_clock_hz()
-    pattern = re.compile(r"\d+(rgb|ycbcr)_kernelI([as])((?:Li\d+E)+)Lb1E")
-    for mangled, ops in sorted(sass.items()):
-        found = pattern.search(mangled)
-        if not found:
-            continue
-        name, wire = found.group(1), 1 if found.group(2) == "a" else 2
-        ints = [int(i) for i in re.findall(r"Li(\d+)E", found.group(3))]
-        if name == "rgb":
-            key = (ints[0], ints[1], ints[2])
-        else:   # ycbcr_kernel<T, G>: the first mode of that block count
-            key = next(k for k in sorted(S.MODES)
-                       if S.mode_for(k).g == ints[0])
-        mode = S.mode_for(key)
-        blocks, smem = tile_occupancy(wire, mode, name == "ycbcr")
-        total = sum(ops.values())
-        per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
-        alu = sum(ops[o] for o in SASS_ALU)
-        mem = sum(ops[o] for o in SASS_MEM)
-        issue_us = per_mcu * 16384 / (4 * sms * clock) * 1e6
-        measured = medians.get((name, mode.name)) if wire == 1 else None
-        label = mode.name if name == "rgb" or mode.g != 4 else "4:2:2/4:4:0"
-        print(f"[4 times] {name}_kernel {label} int{8 * wire} (16-byte "
-              f"stores): {regs.get(mangled, '?')} registers, {smem} B "
-              f"dynamic shared memory, {blocks} blocks/SM "
-              f"({blocks * TILE_THREADS // 32} warps); SASS {total} "
-              f"instructions ({alu} integer ALU, {ops['IMAD']} IMAD, {mem} "
-              f"memory), {per_mcu:.1f} warp instructions an MCU: "
-              f"{issue_us:.2f} us of issue at M=16384 ({sms} SMs x 4 "
-              f"schedulers, {clock / 1e9:.3f} GHz)"
-              + (f" vs {measured * 1e3:.2f} us measured" if measured
-                 else "") + f" | {card}", flush=True)
-    # The scaled kernel at 4:2:0 scale 2 (16-byte stores), likewise: every
-    # round is unrolled and each warp runs it, so a warp runs each
-    # instruction at most once a tile.
-    scaled = re.compile(r"rgb_scaled_kernelI([as])Li2ELi2ELi3ELi4ELb1E")
-    for mangled, ops in sorted(sass.items()):
-        found = scaled.search(mangled)
-        if not found:
-            continue
-        total = sum(ops.values())
-        per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
-        issue = [per_mcu * m / (4 * sms * clock) * 1e6 for m in (16384,
-                                                                 196608)]
-        print(f"[4 times] rgb_scaled_kernel 4:2:0 scale 2 "
-              f"int{8 if found.group(1) == 'a' else 16} (16-byte stores): "
-              f"SASS {total} instructions ({sum(ops[o] for o in SASS_ALU)} "
-              f"integer ALU, {ops['IMAD']} IMAD, "
-              f"{sum(ops[o] for o in SASS_MEM)} memory), {per_mcu:.1f} warp "
-              f"instructions an MCU: {issue[0]:.2f} us of issue at M=16384, "
-              f"{issue[1]:.2f} us at M=196608 | {card}", flush=True)
-
-
-def redesign_resources(torch, card: str, sass: dict) -> None:
-    """Registers (ptxas, ``nvcc.log``) of every instantiation of the banded
-    raster epilogue, the dequantize, IDCT and colour stage kernels, the
-    scaled decode kernel, the stacked and truerez kernels, the memory
-    floor, mxu2pass and mxu64, with the shared memory and blocks an SM
-    holds (the occupancy calculator) of the 4:2:0 epilogue and dequantize
-    ones that phase 4 times and of every IDCT, colour, scaled, stacked,
-    truerez, floor, mxu2pass and mxu64 one (the IDCT kernel and mxu64 have
-    one instantiation; the colour kernel one a mode and store form; the
-    scaled kernel one a mode, wire, scale and store form, the stacked and
-    truerez kernels one a colour mode, wire and store form, the floor one
-    a luma slot count (4:2:2 and 4:4:0 share one), wire and store form,
-    mxu2pass one a ``pieces``), and the SASS instructions of the 4:2:0
-    truerez and floor ones and of mxu2pass and mxu64 (``sass``:
-    ``sass_counts``).
-    Their layouts' bank and alignment claims are static_asserts in the CUDA
-    source, so a build that passes holds them."""
-    from pim_jpeg_decoder_tpu_torch.ops import _build
-    from pim_jpeg_decoder_tpu_torch.ops import specs as S
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        raster_occupancy, tile_occupancy)
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        TILE_MCUS, TILE_THREADS)
-    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import (
-        memfloor_occupancy, stacked_occupancy, truerez_occupancy)
-    from pim_jpeg_decoder_tpu_torch.ops.mxu_idct import (
-        MXU2PASS_TILE, MXU64_PAIR, MXU64_TILE, MXU64_UNITS, TILES_PER_WARP,
-        mxu2pass_occupancy, mxu64_occupancy)
-    from pim_jpeg_decoder_tpu_torch.ops.stage_kernels import (
-        color_occupancy, dequant_occupancy, idct_occupancy)
-
-    with open(os.path.join(_build.build_dir(), "nvcc.log")) as f:
-        log = f.read()
-    entries = re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) "
-                         r"registers", log, flags=re.S)
-    out_types = {"h": None, "f": torch.float32,
-                 "13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
-    epi = re.compile(r"raster_epilogue_kernelI(h|f|13__nv_bfloat16|6__half)"
-                     r"Li(\d+)ELi(\d+)ELb([01])E")
-    deq = re.compile(r"dequant_stage_kernelI([as])Li(\d+)E")
-    color = re.compile(r"color_stage_kernelILi(\d)ELi(\d)ELi(\d)ELb([01])E")
-    scaled = re.compile(r"rgb_scaled_kernelI([as])Li(\d)ELi(\d)ELi(\d)ELi(\d)E"
-                        r"Lb([01])E")
-    stacked = re.compile(r"rgb_stacked_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
-    truerez = re.compile(r"rgb_truerez_kernelI([as])Li(\d)ELi(\d)ELb([01])E")
-    mxu2pass = re.compile(r"mxu2pass_kernelILi([12])E")
-    floor = re.compile(r"memfloor_kernelI([as])Li(\d)ELb([01])E")
-    mode = S.mode_for((2, 2, 3))
-    found = {"epilogue": [], "dequant": [], "idct": [], "color": [],
-             "scaled": [], "stacked": [], "truerez": [], "mxu2pass": [],
-             "memfloor": [], "mxu64": []}
-    clock = max_sm_clock_hz()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for mangled, regs in entries:
-        hit = epi.search(mangled)
-        if hit:
-            n, h = int(hit.group(2)), int(hit.group(3))
-            found["epilogue"].append(int(regs))
-            if h == mode.h and n in (8, 4):
-                dtype = out_types[hit.group(1)]
-                row_form = hit.group(4) == "1"
-                blocks, smem = raster_occupancy(mode, 8 // n, dtype, row_form)
-                print(f"[4 times] raster_epilogue_kernel 4:2:0 scale "
-                      f"{8 // n} -> {dtype or 'uint8'} "
-                      f"({'row' if row_form else 'banded'} form): {regs} "
-                      f"registers, {smem} B dynamic shared memory, {blocks} "
-                      f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-        hit = deq.search(mangled)
-        if hit:
-            found["dequant"].append(int(regs))
-            if int(hit.group(2)) == mode.g:
-                wire = 1 if hit.group(1) == "a" else 2
-                blocks = dequant_occupancy(wire, mode)
-                print(f"[4 times] dequant_stage_kernel 4:2:0 int{8 * wire}: "
-                      f"{regs} registers, no shared memory, {blocks} "
-                      f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-        if "idct_stage_kernel" in mangled:
-            found["idct"].append(int(regs))
-            blocks, smem = idct_occupancy()
-            print(f"[4 times] idct_stage_kernel: {regs} registers, {smem} B "
-                  f"static shared memory, {blocks} blocks/SM "
-                  f"({blocks * 8} warps) | {card}", flush=True)
-        hit = color.search(mangled)
-        if hit:
-            found["color"].append(int(regs))
-            key = tuple(int(hit.group(i)) for i in (1, 2, 3))
-            vec8 = hit.group(4) == "1"
-            blocks, smem = color_occupancy(S.mode_for(key), vec8)
-            print(f"[4 times] color_stage_kernel {S.mode_for(key).name} "
-                  f"({'8-byte' if vec8 else 'byte'} stores): {regs} "
-                  f"registers, {smem} B static shared memory, {blocks} "
-                  f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-        hit = mxu2pass.search(mangled)
-        if hit:
-            pieces = int(hit.group(1))
-            blocks, smem, grid = mxu2pass_occupancy(pieces, 98304)
-            ops = sass[mangled]
-            total = sum(ops.values())
-            found["mxu2pass"].append((int(regs), blocks))
-            per_block = total / (MXU2PASS_TILE * TILES_PER_WARP[pieces])
-            print(f"[4 times] mxu2pass_kernel<{pieces}>: {regs} registers, "
-                  f"{smem} B static shared memory, {blocks} blocks/SM "
-                  f"({4 * blocks} warps), grid {grid} at 98,304 blocks; SASS "
-                  f"{total} instructions ({ops['HMMA']} HMMA, "
-                  f"{sum(ops[o] for o in SASS_MEM)} memory, {ops['BRA']} "
-                  f"branches), at most {per_block:.1f} warp instructions a "
-                  f"block (a warp runs each at most once for its "
-                  f"{MXU2PASS_TILE * TILES_PER_WARP[pieces]} blocks): "
-                  f"{per_block * 98304 / (4 * sms * clock) * 1e6:.2f} us of "
-                  f"issue at M=16384 | {card}", flush=True)
-        if "mxu64_kernel" in mangled:
-            blocks, smem, grid = mxu64_occupancy(98304)
-            ops = sass[mangled]
-            total = sum(ops.values())
-            found["mxu64"].append((int(regs), blocks))
-            per_warp = MXU64_TILE * MXU64_PAIR * MXU64_UNITS
-            per_block = total / per_warp
-            print(f"[4 times] mxu64_kernel: {regs} registers, {smem} B "
-                  f"dynamic shared memory, {blocks} blocks/SM "
-                  f"({4 * blocks} warps), grid {grid} at 98,304 blocks; SASS "
-                  f"{total} instructions ({ops['HMMA']} HMMA, "
-                  f"{sum(ops[o] for o in SASS_MEM)} memory, {ops['BRA']} "
-                  f"branches), at most {per_block:.1f} warp instructions a "
-                  f"block (a warp runs each at most once for its {per_warp} "
-                  f"blocks): "
-                  f"{per_block * 98304 / (4 * sms * clock) * 1e6:.2f} us of "
-                  f"issue at M=16384 | {card}", flush=True)
-        hit = floor.search(mangled)
-        if hit:
-            wire = 1 if hit.group(1) == "a" else 2
-            gy, vec16 = int(hit.group(2)), hit.group(3) == "1"
-            key = {1: (1, 1, 3), 2: (2, 1, 3), 4: (2, 2, 3)}[gy]
-            blocks, smem = memfloor_occupancy(wire, S.mode_for(key), vec16)
-            found["memfloor"].append((int(regs), blocks))
-            note = ""
-            if gy == 4:
-                total = sum(sass[mangled].values())
-                per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
-                note = (f"; SASS {total} instructions, at most "
-                        f"{per_mcu:.1f} warp instructions an MCU: "
-                        f"{per_mcu * 16384 / (4 * sms * clock) * 1e6:.2f} us "
-                        f"of issue at M=16384")
-            print(f"[4 times] memfloor_kernel {gy} luma slots "
-                  f"({S.mode_for(key).name}{'/4:4:0' if gy == 2 else ''}) "
-                  f"int{8 * wire} ({'16-byte' if vec16 else 'byte'} stores): "
-                  f"{regs} registers, {smem} B static shared memory, "
-                  f"{blocks} blocks/SM ({blocks * 8} warps){note} | {card}",
-                  flush=True)
-        hit = truerez.search(mangled)
-        if hit:
-            wire = 1 if hit.group(1) == "a" else 2
-            key = (int(hit.group(2)), int(hit.group(3)), 3)
-            vec16 = hit.group(4) == "1"
-            blocks, smem = truerez_occupancy(wire, S.mode_for(key), vec16)
-            found["truerez"].append((int(regs), blocks))
-            note = ""
-            if key == (2, 2, 3):
-                total = sum(sass[mangled].values())
-                per_mcu = total * (TILE_THREADS // 32) / TILE_MCUS
-                note = (f"; SASS {total} instructions, {per_mcu:.1f} warp "
-                        f"instructions an MCU: "
-                        f"{per_mcu * 16384 / (4 * sms * clock) * 1e6:.2f} us "
-                        f"of issue at M=16384")
-            print(f"[4 times] rgb_truerez_kernel {S.mode_for(key).name} "
-                  f"int{8 * wire} ({'16-byte' if vec16 else 'byte'} stores): "
-                  f"{regs} registers, {smem} B dynamic shared memory, "
-                  f"{blocks} blocks/SM ({blocks * 8} warps){note} | {card}",
-                  flush=True)
-        hit = scaled.search(mangled) or stacked.search(mangled)
-        if hit:
-            kind = "scaled" if hit.re is scaled else "stacked"
-            wire = 1 if hit.group(1) == "a" else 2
-            h, v = int(hit.group(2)), int(hit.group(3))
-            vec16 = hit.group(hit.re.groups) == "1"
-            if kind == "scaled":
-                m_key = (h, v, int(hit.group(4)))
-                scale = 8 // int(hit.group(5))
-                blocks, smem = tile_occupancy(wire, S.mode_for(m_key), False,
-                                              vec16, scale)
-                label = (f"rgb_scaled_kernel {S.mode_for(m_key).name} "
-                         f"scale {scale}")
-            else:
-                m_key = (h, v, 3)
-                blocks, smem = stacked_occupancy(wire, S.mode_for(m_key),
-                                                 vec16)
-                label = f"rgb_stacked_kernel {S.mode_for(m_key).name}"
-            found[kind].append((int(regs), blocks))
-            print(f"[4 times] {label} int{8 * wire} "
-                  f"({'16-byte' if vec16 else 'byte'} stores): {regs} "
-                  f"registers, {smem} B dynamic shared memory, {blocks} "
-                  f"blocks/SM ({blocks * 8} warps) | {card}", flush=True)
-    want = {"epilogue": 36, "dequant": 8, "idct": 1, "color": 10,
-            "scaled": 60, "stacked": 16, "truerez": 16, "mxu2pass": 2,
-            "memfloor": 12, "mxu64": 1}
-    if {k: len(v) for k, v in found.items()} != want:
-        names = ", ".join(f"{len(v)} {k}" for k, v in found.items())
-        fail(f"nvcc.log names {names} instantiations, expected {want}")
-    print(f"[4 times] raster_epilogue_kernel: 36 instantiations (4 output "
-          f"types x banded n 8/4/2/1 x h 1/2, and row form n 8 h 2), "
-          f"{min(found['epilogue'])}-"
-          f"{max(found['epilogue'])} registers; dequant_stage_kernel: 8 "
-          f"(2 wires x g 1/3/4/6), {min(found['dequant'])}-"
-          f"{max(found['dequant'])} registers; idct_stage_kernel: 1, "
-          f"{found['idct'][0]} registers; color_stage_kernel: 10 (5 modes x "
-          f"8-byte/byte stores), {min(found['color'])}-"
-          f"{max(found['color'])} registers | {card}", flush=True)
-    for kind, count in (("rgb_scaled", "60 (5 modes x 2 wires x scale "
-                                       "2/4/8 x 16-byte/byte stores)"),
-                        ("rgb_stacked", "16 (4 colour modes x 2 wires x "
-                                        "16-byte/byte stores)"),
-                        ("rgb_truerez", "16 (4 colour modes x 2 wires x "
-                                        "16-byte/byte stores)"),
-                        ("mxu2pass", "2 (pieces 1, 2)"),
-                        ("memfloor", "12 (1, 2 and 4 luma slots x 2 wires x "
-                                     "16-byte/byte stores)"),
-                        ("mxu64", "1")):
-        regs = [r for r, _ in found[kind.replace("rgb_", "")]]
-        blocks = [b for _, b in found[kind.replace("rgb_", "")]]
-        print(f"[4 times] {kind}_kernel: {count}, {min(regs)}-"
-              f"{max(regs)} registers, {min(blocks)}-{max(blocks)} "
-              f"blocks/SM | {card}", flush=True)
-
-
-def stage_times(torch, mode, bufs, times: dict, card: str) -> None:
-    """The three stage kernels and their plain versions at the stage
-    profile's geometry (``bufs``: 10 rotating 4:2:0 int16 inputs, Q=16)."""
-    from pim_jpeg_decoder_tpu_torch.ops import stage_kernels as SK
-
-    deqs = [SK.dequantize_stage(*b, mode) for b in bufs]
-    spats = [SK.idct_stage(d, mode) for d in deqs]
-    m = deqs[0].shape[0]
-    i16_mb = deqs[0].numel() * 2 / 1e6
-    rgb_mb = 3 * mode.luma_slots * 64 * m / 1e6
-    side = (bufs[0][1].numel() + bufs[0][2].numel()) * 4
-    blocks = m * mode.g
-    cases = {
-        "dequant": (lambda b: SK.dequantize_stage(*b, mode),
-                    lambda b: SK.dequantize_stage_reference(*b), bufs,
-                    2 * i16_mb, side, blocks * DEQUANT_BLOCK_OPS),
-        "idct": (lambda d: SK.idct_stage(d, mode), SK.idct_stage_reference,
-                 deqs, 2 * i16_mb, 0, blocks * IDCT_BLOCK_OPS),
-        "color": (lambda sp: SK.color_stage(sp, mode, raw=True),
-                  lambda sp: SK.color_stage_reference(sp, mode, raw=True),
-                  spats, i16_mb + rgb_mb, 0,
-                  m * mode.luma_slots * 64 * COLOR_PIXEL_OPS),
-    }
-    for name, (kernel, plain, inputs, mb, extra, ops) in cases.items():
-        k = time_band(kernel, inputs)
-        p = time_band(plain, inputs, runs=20)
-        b = bound(mb * 1e6 + extra, ops)
-        times[name] = timing(k, p, b)
-        print(f"[4 times] {name} stage kernel 4:2:0 M={m} int16: "
-              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
-              f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound); "
-              f"plain PyTorch {us_band(p)}; 30/20 "
-              f"launches over 10 rotating inputs | {card}", flush=True)
-
-
-def batch_inputs(torch, dev, blobs, rng, count: int = 10):
-    """``count`` B=256 batches on the card (int8 wire, 196,608 MCUs, 75 MB
-    each), and the staging of the last: two staged by the batch path's own
-    host stage, the others rotations of those by whole images on the card
-    (the same coefficients at other addresses, so each launch reads
-    device memory, not the L2)."""
-    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import _host_stage
-
-    staged_bufs = []
-    for idx in imagenet_batches(rng, blobs, batches=2):
-        staged = _host_stage([blobs[i] for i in idx], 8, "auto",
-                             "chip_smoke", 1, False)
-        staged_bufs.append([t.to(dev) for t in staged.launches[0].arrays])
-    per_image = staged.headers[0].num_mcus
-    bufs = []
-    for i in range(count):
-        coeffs, qidx, qpool = staged_bufs[i % 2]
-        shift = (i // 2) * 37 * per_image
-        bufs.append((torch.roll(coeffs, shift, 0), torch.roll(qidx, shift, 0),
-                     qpool))
-    return bufs, staged
-
-
-def phase_batch_times(torch, dev, card: str, blobs, times: dict) -> None:
-    """The two new kernels and their plain versions at the batch path's
-    shapes, then the batch path's images/s, MP/s and device busy share."""
-    from pim_jpeg_decoder_tpu_torch.utils.profiling import StageTimers
-    from pim_jpeg_decoder_tpu_torch.models.input_pipeline import (
-        iter_decode_batches)
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        decode_mcus, decode_mcus_reference, launch_counts, raster_epilogue,
-        raster_epilogue_reference, raster_occupancy)
-    from pim_jpeg_decoder_tpu_torch.tools.decode_ab import crop_origins
-
-    rng = np.random.default_rng(SEED + 4)
-    bufs, st = batch_inputs(torch, dev, blobs, rng)
-    (ln,) = st.launches
-    mode, m_full = ln.mode, bufs[0][0].shape[0]
-    batch = len(st.headers)
-    for m in (m_full, 16384):
-        sub = [(c[:m], q[:m], qp) for c, q, qp in bufs]
-        mb = sub[0][0].numel() / 1e6 + 3 * mode.luma_slots * 16 * m / 1e6
-        k = time_band(lambda b: decode_mcus(*b, mode, raw=True, scale=2),
-                      sub)
-        p = time_band(lambda b: decode_mcus_reference(
-            *b, mode, raw=True, scale=2), sub, runs=10)
-        q = sub[0][2].shape[0]
-        b = scaled_bound(mode, 2, m, 1, q)
-        old = scaled_bound(mode, 2, m, 1, q, matrix_form=True)
-        if m == m_full:
-            times["rgb_scaled"] = timing(k, p, b)
-        print(f"[4 times] rgb_scaled kernel 4:2:0 scale 2 M={m} int8 wire: "
-              f"{us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB "
-              f"wire + out; {bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the "
-              f"bound; matrix-form {bound_note(old)}, "
-              f"{100 * old[0] / k[0]:.1f}%); plain PyTorch {us_band(p)}; "
-              f"30/10 launches over 10 rotating inputs | {card}", flush=True)
-    h0 = st.headers[0]
-    for scale, dtype_name, crop in ((2, "bfloat16", None), (1, None, None),
-                                    (1, "bfloat16", (224, 224))):
-        raws = [decode_mcus(*b, mode, raw=True, scale=scale) for b in bufs]
-        _, norm = batch_options(torch, dtype_name)
-        out_h, out_w = crop or (-(-h0.height // scale), -(-h0.width // scale))
-        args = (mode, scale, batch, ln.gh, ln.gw, out_h, out_w)
-        if crop:
-            args += crop_origins(torch, rng, batch, scale,
-                                 (h0.height, h0.width), crop, dev)
-        before = launch_counts()["raster_rows"]
-        k = time_band(lambda r: raster_epilogue(r, *args, norm=norm), raws)
-        row_form = launch_counts()["raster_rows"] > before
-        p = time_band(lambda r: raster_epilogue_reference(
-            r, *args, norm=norm), raws, runs=10)
-        out_elems = batch * out_h * out_w * 3
-        out_bytes = out_elems * (2 if dtype_name else 1)
-        # Each input byte the output needs read once: the pixels of the
-        # output window, not the MCU grid's padding around it.
-        mb = (out_elems + out_bytes) / 1e6
-        # A subtract and a multiply an element when normalising.
-        b = bound(mb * 1e6, 2 * out_elems if dtype_name else 0, FP32_FLOPS)
-        form = (f"{out_h}x{out_w} crops of scale {scale}" if crop
-                else f"scale {scale}")
-        key = ("raster_crops" if crop else
-               "raster" if scale == 1 else "raster_scale2")
-        times[key] = timing(k, p, b)
-        blocks, smem = raster_occupancy(
-            mode, scale, getattr(torch, dtype_name) if dtype_name else None,
-            rows=row_form)
-        print(f"[4 times] raster epilogue B={batch} {form} -> "
-              f"{dtype_name or 'uint8'} [{batch}, {out_h}, {out_w}, 3]"
-              f": {us_band(k)}/launch ({mb / k[0]:.0f} GB/s of {mb:.1f} MB; "
-              f"{bound_note(b)}, {100 * b[0] / k[0]:.1f}% of the bound; "
-              f"{'row' if row_form else 'banded'} form, {smem} B dynamic "
-              f"shared memory, {blocks} blocks/SM); plain "
-              f"PyTorch {us_band(p)}; 30/10 launches "
-              f"over 10 rotating inputs | {card}", flush=True)
-        del raws
-    del bufs
-    torch.cuda.empty_cache()
-
-    order = imagenet_batches(rng, blobs)
-    mp_per_image = st.headers[0].width * st.headers[0].height / 1e6
-
-    def run(scale, dtype_name, timers=None) -> int:
-        n = 0
-        for out, headers in iter_decode_batches(
-                ([blobs[i] for i in idx] for idx in order), scale=scale,
-                device=dev, timers=timers,
-                **batch_options(torch, dtype_name)[0]):
-            n += len(headers)
-        torch.cuda.synchronize()
-        return n
-
-    for scale, dtype_name in BATCH_CONFIGS:
-        rates = []
-        for _ in range(3):
-            t0 = time.monotonic()
-            n = run(scale, dtype_name)
-            rates.append(n / (time.monotonic() - t0))
-        timers = StageTimers()
-        run(scale, dtype_name, timers)
-        split = ", ".join(f"{k} {v[0]:.3f}"
-                          for k, v in timers.snapshot().items())
-        print(f"[4 times] batch path iter_decode_batches, {len(order)} x "
-              f"B={batch} 500x375 4:2:0, scale {scale}, "
-              f"{dtype_name or 'uint8'}: images/s "
-              f"{', '.join(f'{r:.0f}' for r in rates)} (median "
-              f"{statistics.median(rates):.0f}; MP/s "
-              f"{statistics.median(rates) * mp_per_image:.1f}); stage "
-              f"seconds of a run with timers (h2d and device on the "
-              f"card's clock): {split} | {card}",
-              flush=True)
-    busy = device_busy(torch, lambda: run(1, None),
-                       "batch path run (scale 1, uint8)")
-    print(f"[4 times] {busy} | {card}", flush=True)
-
-
-def max_sm_clock_hz() -> float:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60)
-    if proc.returncode != 0 or not proc.stdout.strip():
-        fail(f"nvidia-smi clocks.max.sm failed: {proc.stderr.strip()}")
-    return float(proc.stdout.strip().splitlines()[0]) * 1e6
-
-
-@contextlib.contextmanager
-def tf32_matmul(torch):
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-
-
-def phase_ab_times(torch, dev, card: str, times: dict) -> None:
-    """The IDCT variants of ``tools.mxu_idct_ab`` (the butterfly stage
-    kernel, mxu2pass, mxu2pass4, mxu64) and their plain versions on the
-    tool's draw rotated past twice the L2, beside the yardstick products
-    (``torch.matmul`` with TF32 allowed: the products only, not the round
-    and clip); then the VLC kernel and its plain version on the tool's
-    bitstream."""
-    from pim_jpeg_decoder_tpu_torch.ops import mxu_idct as X
-    from pim_jpeg_decoder_tpu_torch.ops.vlc import vlc, vlc_reference
-    from pim_jpeg_decoder_tpu_torch.tools import mxu_idct_ab, vlc_bench
-    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
-
-    m, g = mxu_idct_ab.M, mxu_idct_ab.MODE.g
-    blocks = m * g
-    nbytes = 2 * blocks * 64 * 2                     # int16 in and out
-    rot = [torch.from_numpy(d).to(dev) for d in mxu_idct_ab.make_inputs(
-        max(8, rotation_count(nbytes // 2, dev)))]
-    # The yardsticks' float32 operands: [8, 8 blocks] per pass, [64, blocks].
-    x8 = [d.float().view(m, g, 8, 8).permute(2, 0, 1, 3).reshape(8, -1)
-          for d in rot]
-    x64 = [d.float().view(blocks, 64).t().contiguous() for d in rot]
-    a8 = torch.from_numpy(X.mat8()).to(dev)
-    a64 = torch.from_numpy(X.mat64()).to(dev)
-    pairs = [(x8[i], x8[(i + 1) % len(x8)]) for i in range(len(x8))]
-    with tf32_matmul(torch):
-        lib2 = time_band(lambda xs: (a8 @ xs[0], a8 @ xs[1]), pairs)
-        lib64 = time_band(lambda x: a64 @ x, x64)
-    del x8, x64, pairs
-    library = {"mxu2pass": lib2, "mxu2pass4": None, "mxu64": lib64,
-               "butterfly": None}
-    flops = {"butterfly": 0, "mxu2pass": 2048 * blocks,
-             "mxu2pass4": 4 * 2048 * blocks, "mxu64": 8192 * blocks}
-    fns = mxu_idct_ab.variant_fns()
-    for name, (kernel, plain) in fns.items():
-        k = time_band(kernel, rot)
-        p = time_band(plain, rot, runs=20)
-        b = (bound(nbytes, blocks * IDCT_BLOCK_OPS) if name == "butterfly"
-             else bound(nbytes, flops[name], TF32_FLOPS))
-        lib = library[name]
-        if name != "butterfly":
-            times[name] = timing(k, p, b, lib[0] if lib else None)
-        lib_note = (f"; torch.matmul yardstick (TF32, products only"
-                    f"{', both passes' if name == 'mxu2pass' else ''}) "
-                    f"{us_band(lib)}" if lib else "")
-        print(f"[4 times] IDCT A/B {name} 4:2:0 M={m} int16: {us_band(k)}"
-              f"/launch ({nbytes / 1e6 / k[0]:.0f} GB/s of "
-              f"{nbytes / 1e6:.1f} MB; {bound_note(b)}); plain PyTorch "
-              f"{us_band(p)}{lib_note}; 30/20 launches over {len(rot)} "
-              f"rotating inputs | {card}", flush=True)
-    del rot
-    torch.cuda.empty_cache()
-
-    data, lut = (torch.from_numpy(a).to(dev) for a in vlc_bench.make_inputs())
-    seeds = [torch.tensor([i], dtype=torch.int32, device=dev)
-             for i in range(8)]
-    _, nsym, bits = vlc_reference(seeds[0].cpu(), data.cpu(),
-                                  lut.cpu()).tolist()
-    fills = [torch.empty(1, dtype=torch.int32, device=dev) for _ in seeds]
-    k = time_band(lambda s: vlc(s, data, lut), seeds)
-    fill = time_band(lambda f: f.fill_(0), fills)
-    p = time_band(lambda s: vlc_reference(s, data, lut), seeds, runs=5)
-    # Each input read once (seed, stream, table), the output written once.
-    nbytes = 4 * (1 + vlc_bench.NWORDS + vlc_bench.LUT_SIZE + 3)
-    b = bound(nbytes, nsym * VLC_SYMBOL_OPS)
-    times["vlc"] = timing(k, p, b)
-    print(f"[4 times] vlc kernel, {vlc_bench.NWORDS} words, {nsym} symbols, "
-          f"{bits} bits: {us_band(k)}/launch ({nsym / k[0] / 1e3:.2f} "
-          f"Msymbols/s, {k[0] * 1e6 / nsym:.3f} ns a symbol); bound "
-          f"{b[0] * 1e6:.3f} ns ({b[1]}: {nbytes} bytes over 3.35 TB/s "
-          f"{nbytes / HBM_BYTES_PER_S * 1e9:.3f} ns, {VLC_SYMBOL_OPS} "
-          f"integer operations a symbol over 33.5 T/s "
-          f"{nsym * VLC_SYMBOL_OPS / INT32_OPS * 1e9:.3f} ns), "
-          f"{100 * b[0] / k[0]:.4f}% of it; a 4-byte fill_ launch "
-          f"{us_band(fill)} (the card's floor for any launch), the kernel "
-          f"{k[0] / fill[0]:.2f}x it; plain Python loop {us_band(p)}; "
-          f"30/30/5 launches | {card}", flush=True)
-
-
-def redesign_times(torch, dev, card: str, times: dict) -> None:
-    """The two kernels redesigned last at a B=256 batch's size: the memory
-    floor at 4:2:0, M=196,608 int16 (the kernel_opt draw) and mxu64 on
-    1,179,648 blocks of the IDCT tool's draw, each beside its plain
-    version and its bound, mxu64 also beside its TF32 ``torch.matmul``
-    yardstick; kept as each one's ``other_geometries`` on the kernels
-    line."""
-    from pim_jpeg_decoder_tpu_torch.ops import kernel_variants as KV
-    from pim_jpeg_decoder_tpu_torch.ops import mxu_idct as X
-    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
-        coeffs_to_device, qpool_to_device)
-    from pim_jpeg_decoder_tpu_torch.tools import kernel_opt, mxu_idct_ab
-    from pim_jpeg_decoder_tpu_torch.utils.devbench import rotation_count
-
-    m, mode = 196608, kernel_opt.MODE
-    wire_bytes = m * mode.g * 64 * 2
-    host = kernel_opt.make_inputs(max(2, rotation_count(wire_bytes, dev)), 0,
-                                  m)["i16"]
-    bufs = [(coeffs_to_device(c, dev), torch.from_numpy(qi).to(dev),
-             qpool_to_device(qp, dev)) for c, qi, qp in host]
-    del host
-    k = time_band(lambda b: KV.memfloor(*b, mode), bufs)
-    p = time_band(lambda b: KV.memfloor_reference(*b, mode), bufs, runs=10)
-    out = 3 * mode.luma_slots * 64 * m
-    b = bound(wire_bytes + out, m * mode.luma_slots * 64 * 2)
-    times["memfloor_196608"] = timing(k, p, b)
-    print(f"[4 times] memfloor kernel 4:2:0 M={m} int16 wire: {us_band(k)}"
-          f"/launch ({(wire_bytes + out) / 1e6 / k[0]:.0f} GB/s of "
-          f"{(wire_bytes + out) / 1e6:.1f} MB; {bound_note(b)}); plain "
-          f"PyTorch {us_band(p)}; 30/10 launches over {len(bufs)} rotating "
-          f"inputs | {card}", flush=True)
-    del bufs
-    torch.cuda.empty_cache()
-
-    blocks = m * mxu_idct_ab.MODE.g
-    nbytes = 2 * blocks * 64 * 2                     # int16 in and out
-    rot = [torch.from_numpy(d).to(dev) for d in mxu_idct_ab.make_inputs(
-        max(2, rotation_count(nbytes // 2, dev)), m)]
-    a64 = torch.from_numpy(X.mat64()).to(dev)
-    x64 = [d.float().view(blocks, 64).t().contiguous() for d in rot]
-    with tf32_matmul(torch):
-        lib = time_band(lambda x: a64 @ x, x64)
-    del x64
-    k = time_band(X.mxu64, rot)
-    p = time_band(X.mxu64_reference, rot, runs=10)
-    b = bound(nbytes, 8192 * blocks, TF32_FLOPS)
-    times["mxu64_196608"] = timing(k, p, b, lib[0])
-    print(f"[4 times] IDCT A/B mxu64 4:2:0 M={m} int16: {us_band(k)}/launch "
-          f"({nbytes / 1e6 / k[0]:.0f} GB/s of {nbytes / 1e6:.1f} MB; "
-          f"{bound_note(b)}); plain PyTorch {us_band(p)}; torch.matmul "
-          f"yardstick (TF32, product only) {us_band(lib)}; 30/10 launches "
-          f"over {len(rot)} rotating inputs | {card}", flush=True)
-    del rot
-    torch.cuda.empty_cache()
-
-
-def kernel_bounds(times: dict, card: str) -> None:
-    """Each kernel's median time against its bound, and its share of it."""
-    for name, t in times.items():
-        print(f"[4 times] bound {JSON_NAMES.get(name, f'decode_{name}')}: "
-              f"{t['ms'] * 1e3:.2f} us vs {t['bound_ms'] * 1e3:.4g} us "
-              f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.3g}% of "
-              f"the bound; library "
-              + (f"{t['library_ms'] * 1e3:.2f} us" if t["library_ms"]
-                 else "none") + f" | {card}", flush=True)
-
-
-def device_busy(torch, fn, label: str) -> str:
-    """One traced run of ``fn``: the union of device activity (kernels and
-    copies) over the run's wall time, and the device ops that took most."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        return "device busy share: not measured (no device events traced)"
-    busy_us, end, by_name = 0.0, float("-inf"), {}
-    for s, e, name in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return (f"traced {label}: wall {wall:.4f} s, device busy "
-            f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}%, idle "
-            f"{100 - 100 * busy_us / 1e6 / wall:.1f}%); device time by op: "
-            + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
-
-
 # --- main --------------------------------------------------------------------
+
+def kernels_record(counts: dict, max_err: dict) -> dict:
+    """The kernels' JSON record: for each launch counter of ``KERNELS``,
+    its name, route, CUDA source, the TPU kernel it replaces, the launches
+    phases 2-3 counted and its largest difference from its plain
+    version."""
+    return {"kernels": [{
+        "name": JSON_NAMES.get(name, f"decode_{name}"),
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": counts[name],
+        "max_abs_err": max_err[name],
+    } for name, (source, replaces) in KERNELS.items()]}
+
 
 def cards_only(torch, dev, card: str, root: str, tmp: str, paths, oracles,
                blobs, imagenet, scaled_oracles, crop_set) -> int:
@@ -3234,43 +2059,12 @@ def main(argv=None) -> int:
                      2: [scaled_oracles[p] for p in imagenet]}, crop_set)
         phase_fuzz(dev)
         phase_host(root)
-        record, tool_counts = phase_tool()
+        tool_counts = phase_tool()
         counts.update({k: tool_counts[k] for k in KERNEL_OPT_COUNTERS})
         counts.update(phase_ab_tools())
-        floor_shares(record, card)
-        floor_sweep(torch, card)
-        times = phase_times(torch, dev, card, paths)
-        phase_batch_times(torch, dev, card, [blobs[p] for p in imagenet],
-                          times)
-        phase_ab_times(torch, dev, card, times)
-        redesign_times(torch, dev, card, times)
-        from pim_jpeg_decoder_tpu_torch.ops import _build
-        sass = sass_counts(os.path.join(_build.build_dir(), _build.LIB_NAME))
-        tile_resources(torch, card, tile_times(torch, dev, card), sass)
-        scaled_stacked_times(torch, dev, card)
-        redesign_resources(torch, card, sass)
-        kernel_bounds(times, card)
 
-    kernels = [{
-        "name": JSON_NAMES.get(name, f"decode_{name}"),
-        "route": "cuda",
-        "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1],
-        "launches": counts[name],
-        "max_abs_err": max_err[name],
-        **times[name],
-    } for name in KERNELS]
-    for k in kernels:   # other timed geometries
-        if k["name"] == JSON_NAMES["raster"]:
-            k["geometry"] = "B=256 500x375 4:2:0, scale 1 -> uint8"
-            k["other_geometries"] = {JSON_NAMES[g]: times[g] for g in
-                                     ("raster_scale2", "raster_crops")}
-        for name, label in (("memfloor", "4:2:0 M=196608 int16"),
-                            ("mxu64", "4:2:0 M=196608 (1,179,648 blocks)")):
-            if k["name"] == JSON_NAMES[name]:
-                k["other_geometries"] = {label: times[f"{name}_196608"]}
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps(kernels_record(counts, max_err)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

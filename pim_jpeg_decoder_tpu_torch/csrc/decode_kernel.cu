@@ -54,9 +54,9 @@
 // prepare() lifts the dynamic limit and asks for the largest shared-memory
 // carveout.  A 16,384-MCU launch is 512 blocks, one wave of 4-8 blocks
 // (32-64 warps) an SM.  ptxas and the occupancy calculator on an H100
-// (chip_smoke.py phase 4; int8 [int16]): rgb_kernel 31 [24] registers,
-// 8 blocks/SM gray; 48 [48], 5 at 4:4:4; 55 [55], 4 at 4:2:2 and 4:4:0;
-// 64 [64], 4 at 4:2:0.  ycbcr_kernel 31 [24], 8 gray; 48 [48], 5 at 4:4:4;
+// (PERF.md; int8 [int16]): rgb_kernel 31 [24] registers, 8 blocks/SM
+// gray; 48 [48], 5 at 4:4:4; 55 [55], 4 at 4:2:2 and 4:4:0; 64 [64], 4 at
+// 4:2:0.  ycbcr_kernel 31 [24], 8 gray; 48 [48], 5 at 4:4:4;
 // 56 [56], 4 at g = 4 and 4:2:0.  No spills.
 //
 // What bounds them on an H100 80GB HBM3 at 700 W (PERF.md): neither
@@ -93,7 +93,7 @@
 //   - samples park in shared memory and rows are stored like rgb_kernel's
 //     (8 bytes of a row a lane in colour, 16 in gray; byte stores when M %
 //     16 != 0).
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4; PERF.md): 18-40
+// On an H100 80GB HBM3 at 700 W (PERF.md): 18-40
 // registers, 1.7-39.6 KB of shared memory, 5-8 blocks an SM (4:2:0 scale
 // 2: 40 registers, 31,360 B int8 [39,552 B int16], 6 [5] blocks).  4:2:0
 // scale 2 int8 on a B=256 batch (M=196,608): 65.4 us, was 97.4-98.3; at
@@ -737,29 +737,4 @@ extern "C" int pjt_cuda_decode_rgb_scaled(const void* coeffs, int wire_bytes,
   if (scale == 1) return cudaErrorInvalidValue;
   return decode(coeffs, wire_bytes, qidx, qpool, num_q, out, num_mcus, h, v,
                 ncomp, stream, false, scale);
-}
-
-// The tile kernel a decode launches (see pick_kernel): its dynamic shared
-// memory in *smem_bytes and the blocks of TILE_THREADS an SM holds in
-// *blocks_per_sm (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int pjt_cuda_decode_occupancy(int wire_bytes, int h, int v,
-                                         int ncomp, int ycbcr, int scale,
-                                         int vec16, int* blocks_per_sm,
-                                         int* smem_bytes) {
-  return dispatch_wire(wire_bytes, [&](auto wire) {
-    using T = decltype(wire);
-    return dispatch_mode(h, v, ncomp, [&](auto mode) {
-      using M = decltype(mode);
-      KernelFn<T> kernel;
-      int smem = 0;
-      cudaError_t e = pick_kernel<T, M::h, M::v, M::nc>(
-          ycbcr != 0, scale, vec16 != 0, kernel, smem);
-      if (e == cudaSuccess) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, kernel, TILE_THREADS, smem);
-      }
-      *smem_bytes = smem;
-      return static_cast<int>(e);
-    });
-  });
 }

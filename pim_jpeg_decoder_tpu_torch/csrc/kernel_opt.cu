@@ -16,9 +16,9 @@
 // (px*8 + py), as rgb_kernel does; colour modes only (g = gy + 2).  The
 // ragged end (M not a multiple of the block's MCUs) is masked.
 //
-// What bounds them on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4;
-// PERF.md): the floor, bytes (a 16,384-MCU 4:2:0 launch reads 12.6 MB of
-// int16 wire and writes 12.6 MB of RGB: 7.54 us at 3.35 TB/s); truerez
+// What bounds them on an H100 80GB HBM3 at 700 W (PERF.md): the floor,
+// bytes (a 16,384-MCU 4:2:0 launch reads 12.6 MB of int16 wire and writes
+// 12.6 MB of RGB: 7.54 us at 3.35 TB/s); truerez
 // and stacked, like the tiled rgb_kernel, one wave's latency at M=16,384
 // and issue at M=196,608.
 //   - memfloor_kernel moves the bytes of the tiled decode kernels
@@ -772,45 +772,6 @@ int run(Variant var, const void* coeffs, int wire_bytes, const void* qidx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile kernel (`var`) a launch of M % 16 == 0 (vec16 = 1) or of the byte
-// stores (0) takes in mode h x v on this wire: its dynamic shared memory in
-// *smem_bytes and the blocks of TILE_THREADS an SM holds in *blocks_per_sm
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int tile_occupancy(Variant var, int wire_bytes, int h, int v, int vec16,
-                   int* blocks_per_sm, int* smem_bytes) {
-  if (wire_bytes != 1 && wire_bytes != 2) return cudaErrorInvalidValue;
-  return dispatch_mode(h, v, [&](auto hc, auto vc) {
-    constexpr int H = decltype(hc)::value, V = decltype(vc)::value;
-    const auto query = [&](auto wire) {
-      using T = decltype(wire);
-      cudaError_t e;
-      if (var == Variant::kMemfloor) {
-        // Static shared memory: the floor's tile.
-        const void* kernel =
-            reinterpret_cast<const void*>(memfloor_fn<T, H * V>(vec16 != 0));
-        cudaFuncAttributes attr;
-        e = cudaFuncGetAttributes(&attr, kernel);
-        *smem_bytes = static_cast<int>(attr.sharedSizeBytes);
-        if (e == cudaSuccess) {
-          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              blocks_per_sm, kernel, TILE_THREADS, 0);
-        }
-        return static_cast<int>(e);
-      }
-      KernelFn<T> kernel;
-      int smem = 0;
-      e = pick_tile_kernel<T, H, V>(var, vec16 != 0, kernel, smem);
-      if (e == cudaSuccess) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, kernel, TILE_THREADS, smem);
-      }
-      *smem_bytes = smem;
-      return static_cast<int>(e);
-    };
-    return wire_bytes == 2 ? query(int16_t{}) : query(int8_t{});
-  });
-}
-
 }  // namespace
 
 // C entry points (bound with ctypes), with pjt_cuda_decode_rgb's signature
@@ -843,25 +804,4 @@ extern "C" int pjt_cuda_decode_rgb_stacked(const void* coeffs, int wire_bytes,
                                            int ncomp, void* stream) {
   return run(Variant::kStacked, coeffs, wire_bytes, qidx, qpool, num_q, out,
              num_mcus, h, v, ncomp, stream);
-}
-
-extern "C" int pjt_cuda_stacked_occupancy(int wire_bytes, int h, int v,
-                                          int vec16, int* blocks_per_sm,
-                                          int* smem_bytes) {
-  return tile_occupancy(Variant::kStacked, wire_bytes, h, v, vec16,
-                        blocks_per_sm, smem_bytes);
-}
-
-extern "C" int pjt_cuda_memfloor_occupancy(int wire_bytes, int h, int v,
-                                           int vec16, int* blocks_per_sm,
-                                           int* smem_bytes) {
-  return tile_occupancy(Variant::kMemfloor, wire_bytes, h, v, vec16,
-                        blocks_per_sm, smem_bytes);
-}
-
-extern "C" int pjt_cuda_truerez_occupancy(int wire_bytes, int h, int v,
-                                          int vec16, int* blocks_per_sm,
-                                          int* smem_bytes) {
-  return tile_occupancy(Variant::kTruerez, wire_bytes, h, v, vec16,
-                        blocks_per_sm, smem_bytes);
 }

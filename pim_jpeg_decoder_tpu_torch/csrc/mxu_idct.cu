@@ -722,23 +722,6 @@ cudaError_t mxu64_ready() {
   });
 }
 
-// The CUDA blocks of mxu2pass_kernel<PIECES> an SM holds and their static
-// shared memory.
-int mxu2pass_resident(int pieces, int* blocks, int* smem) {
-  if (pieces != 1 && pieces != 2) return cudaErrorInvalidValue;
-  const void* kernel =
-      pieces == 1 ? reinterpret_cast<const void*>(mxu2pass_kernel<1>)
-                  : reinterpret_cast<const void*>(mxu2pass_kernel<2>);
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess) {
-    *smem = static_cast<int>(attr.sharedSizeBytes);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                      M2_THREADS, 0);
-  }
-  return static_cast<int>(e);
-}
-
 // The grid of a launch: a warp for every kTiles tiles.
 unsigned mxu2pass_grid(int pieces, long long num_blocks) {
   const long long per_block = static_cast<long long>(M2_WARPS) * M2_TILE *
@@ -780,16 +763,6 @@ extern "C" int pjt_cuda_mxu2pass(const void* deq, const void* mat, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mxu2pass_kernel<pieces>: the CUDA blocks of M2_THREADS an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its static shared memory
-// and the grid of a launch of num_blocks blocks.
-extern "C" int pjt_cuda_mxu2pass_occupancy(int pieces, long long num_blocks,
-                                           int* blocks_per_sm,
-                                           int* smem_bytes, int* grid) {
-  *grid = static_cast<int>(mxu2pass_grid(pieces, num_blocks));
-  return mxu2pass_resident(pieces, blocks_per_sm, smem_bytes);
-}
-
 // inv = 2^-(2 CONST_BITS).  mat is the [64, 64] basis as float32 (its
 // structure, kron(A, A), is not assumed).
 extern "C" int pjt_cuda_mxu64(const void* deq, const void* mat, void* out,
@@ -807,22 +780,4 @@ extern "C" int pjt_cuda_mxu64(const void* deq, const void* mat, void* out,
       static_cast<const int16_t*>(deq), static_cast<const float*>(mat),
       static_cast<int16_t*>(out), num_blocks, inv);
   return static_cast<int>(cudaGetLastError());
-}
-
-// mxu64_kernel: the CUDA blocks of M64_THREADS an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with its dynamic shared
-// memory), that shared memory and the grid of a launch of num_blocks
-// blocks.
-extern "C" int pjt_cuda_mxu64_occupancy(long long num_blocks,
-                                        int* blocks_per_sm, int* smem_bytes,
-                                        int* grid) {
-  *grid = static_cast<int>(mxu64_grid(num_blocks));
-  *smem_bytes = M64_SMEM;
-  cudaError_t e = mxu64_ready();
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, reinterpret_cast<const void*>(mxu64_kernel),
-        M64_THREADS, M64_SMEM);
-  }
-  return static_cast<int>(e);
 }

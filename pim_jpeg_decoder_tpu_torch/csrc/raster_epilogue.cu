@@ -906,39 +906,6 @@ int launch(const void* raw, const void* oys, const void* oxs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename OutT>
-int occupancy(int v, int h, int n, int row_bytes, bool rows, int* blocks) {
-  if (rows) {
-    const cudaError_t e = rows_prepared<OutT>();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, rows_kernel<OutT>(), THREADS, rows_bytes(v)));
-  }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel_for<OutT>(n, h), THREADS,
-      band_bytes(v, h, n, row_bytes)));
-}
-
-int occupancy_of(int v, int h, int n, int out_kind, int row_bytes,
-                 bool rows, int* blocks, int* smem_bytes) {
-  if (!supported(v, h, n) || (rows && h * n != RTW) ||
-      (row_bytes != CHUNK && row_bytes != CHUNK + VEC)) {
-    return cudaErrorInvalidValue;
-  }
-  *smem_bytes = rows ? rows_bytes(v) : band_bytes(v, h, n, row_bytes);
-  switch (out_kind) {
-    case 0:
-      return occupancy<uint8_t>(v, h, n, row_bytes, rows, blocks);
-    case 1:
-      return occupancy<float>(v, h, n, row_bytes, rows, blocks);
-    case 2:
-      return occupancy<__nv_bfloat16>(v, h, n, row_bytes, rows, blocks);
-    case 3:
-      return occupancy<__half>(v, h, n, row_bytes, rows, blocks);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // C entry point (bound with ctypes).  out_kind: 0 u8 (mean/inv_std unused),
@@ -1002,22 +969,4 @@ extern "C" int pjt_cuda_raster_rows(const void* raw, long long num_mcus,
                                     int h, int n, int gw, int out_w, int crop,
                                     const void* out) {
   return rows_copy(raw, num_mcus, h, n, gw, out_w, crop != 0, out) != 0;
-}
-
-// Blocks of the banded-form epilogue kernel for this geometry, output kind
-// and shared-memory row width (32 or 48 bytes, as the launch picks it) that
-// one SM holds, and the band's dynamic shared memory in bytes.
-extern "C" int pjt_cuda_raster_occupancy(int v, int h, int n, int out_kind,
-                                         int row_bytes, int* blocks,
-                                         int* smem_bytes) {
-  return occupancy_of(v, h, n, out_kind, row_bytes, false, blocks,
-                      smem_bytes);
-}
-
-// The same for the row form: blocks an SM holds and a block's dynamic
-// shared memory (band, staging buffer and table).
-extern "C" int pjt_cuda_raster_rows_occupancy(int v, int h, int n,
-                                              int out_kind, int* blocks,
-                                              int* smem_bytes) {
-  return occupancy_of(v, h, n, out_kind, CHUNK, true, blocks, smem_bytes);
 }

@@ -62,7 +62,7 @@
 //     the IDCT's [-128, 127].
 // The ragged end (M not a multiple of the tile) is masked in the kernels.
 //
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4, PERF.md): the
+// On an H100 80GB HBM3 at 700 W (PERF.md): the
 // IDCT kernel has 26 registers and 17,920 B of shared memory, 8 blocks an
 // SM; 4:2:0, M=16,384, int16 it takes 12.0-12.2 us (61% of its 7.51 us
 // byte bound), at M=196,608 104.6 us (86%).  The 4:2:0 colour kernel has
@@ -365,29 +365,6 @@ int dequant_g(const void* coeffs, const void* qidx, const void* qpool,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dequant_occupancy(int g, int* blocks) {
-  const void* kernel = nullptr;
-  switch (g) {
-    case 1:
-      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 1>);
-      break;
-    case 3:
-      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 3>);
-      break;
-    case 4:
-      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 4>);
-      break;
-    case 6:
-      kernel = reinterpret_cast<const void*>(dequant_stage_kernel<T, 6>);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, DEQ_THREADS, 0));
-}
-
 // The largest shared-memory carveout for a kernel, asked once per kernel
 // and device, so that shared memory does not cap the blocks an SM holds (8
 // IDCT blocks of 17.9 KB; registers hold the 4:2:0 colour tile, 27.8 KB,
@@ -398,42 +375,26 @@ inline cudaError_t max_shared(const void* kernel) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The blocks of `threads` an SM holds and the static shared memory of
-// `kernel` (after max_shared, as the launches see it).
-inline int occupancy(const void* kernel, cudaError_t ready, int threads,
-                     int* blocks, int* smem) {
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess) {
-    *smem = static_cast<int>(attr.sharedSizeBytes);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                      threads, 0);
-  }
-  return static_cast<int>(e);
-}
-
-const void* idct_kernel(cudaError_t& ready) {
-  const void* kernel = reinterpret_cast<const void*>(idct_stage_kernel);
+cudaError_t idct_ready() {
   static PerDevice prepared;
-  ready = prepared.get([kernel] { return max_shared(kernel); });
-  return kernel;
+  return prepared.get([] {
+    return max_shared(reinterpret_cast<const void*>(idct_stage_kernel));
+  });
 }
 
 template <int H, int V, int NC, bool VEC8>
-const void* color_kernel(cudaError_t& ready) {
-  const void* kernel =
-      reinterpret_cast<const void*>(color_stage_kernel<H, V, NC, VEC8>);
+cudaError_t color_ready() {
   static PerDevice prepared;
-  ready = prepared.get([kernel] { return max_shared(kernel); });
-  return kernel;
+  return prepared.get([] {
+    return max_shared(
+        reinterpret_cast<const void*>(color_stage_kernel<H, V, NC, VEC8>));
+  });
 }
 
 template <int H, int V, int NC, bool VEC8>
 int launch_color(const void* spat, void* out, long long num_mcus,
                  cudaStream_t stream) {
-  cudaError_t ready;
-  color_kernel<H, V, NC, VEC8>(ready);
+  const cudaError_t ready = color_ready<H, V, NC, VEC8>();
   if (ready != cudaSuccess) return static_cast<int>(ready);
   color_stage_kernel<H, V, NC, VEC8>
       <<<grid(num_mcus, COLOR_TILE), COLOR_THREADS, 0, stream>>>(
@@ -482,34 +443,18 @@ extern "C" int pjt_cuda_dequant_stage(const void* coeffs, int wire_bytes,
   return cudaErrorInvalidValue;
 }
 
-// Blocks of the dequantize kernel for this wire and g that one SM holds.
-extern "C" int pjt_cuda_dequant_occupancy(int wire_bytes, int g,
-                                          int* blocks) {
-  if (wire_bytes != 1 && wire_bytes != 2) return cudaErrorInvalidValue;
-  return wire_bytes == 2 ? dequant_occupancy<int16_t>(g, blocks)
-                         : dequant_occupancy<int8_t>(g, blocks);
-}
-
 // num_blocks = M * g independent 8x8 blocks (16-byte aligned input and
 // output); output int16, row-major.
 extern "C" int pjt_cuda_idct_stage(const void* deq, void* out,
                                    long long num_blocks, void* stream) {
   if (num_blocks <= 0) return cudaErrorInvalidValue;
-  cudaError_t ready;
-  idct_kernel(ready);
+  const cudaError_t ready = idct_ready();
   if (ready != cudaSuccess) return static_cast<int>(ready);
   idct_stage_kernel<<<grid(num_blocks, IDCT_BLOCKS), IDCT_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(deq), static_cast<int16_t*>(out),
       num_blocks);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks of the IDCT kernel one SM holds, and its static shared memory.
-extern "C" int pjt_cuda_idct_occupancy(int* blocks, int* smem) {
-  cudaError_t ready;
-  const void* kernel = idct_kernel(ready);
-  return occupancy(kernel, ready, IDCT_THREADS, blocks, smem);
 }
 
 // Output uint8 [3, h*v, 64, M] (gray: h = v = 1, the luma in all three);
@@ -528,19 +473,5 @@ extern "C" int pjt_cuda_color_stage(const void* spat, void* out,
                                                            num_mcus, st)
                 : launch_color<M::kH, M::kV, M::kNC, false>(spat, out,
                                                             num_mcus, st);
-  });
-}
-
-// The colour kernel a mode launches (vec8: the 8-byte store form): the
-// blocks one SM holds and its static shared memory.
-extern "C" int pjt_cuda_color_occupancy(int h, int v, int ncomp, int vec8,
-                                        int* blocks, int* smem) {
-  return color_mode(h, v, ncomp, [&](auto mode) {
-    using M = decltype(mode);
-    cudaError_t ready;
-    const void* kernel =
-        vec8 ? color_kernel<M::kH, M::kV, M::kNC, true>(ready)
-             : color_kernel<M::kH, M::kV, M::kNC, false>(ready);
-    return occupancy(kernel, ready, COLOR_THREADS, blocks, smem);
   });
 }

@@ -142,22 +142,8 @@ def load() -> ctypes.CDLL:
                      [ptr, ptr, ptr, ctypes.c_int64, f32, ptr]),
                     (lib.pjt_cuda_vlc, [ptr] * 5),
                     (lib.pjt_cuda_vlc_exit_violations, [ptr]),
-                    (lib.pjt_cuda_decode_occupancy, [i32] * 7 + [ptr, ptr]),
-                    (lib.pjt_cuda_stacked_occupancy, [i32] * 4 + [ptr, ptr]),
-                    (lib.pjt_cuda_truerez_occupancy, [i32] * 4 + [ptr, ptr]),
-                    (lib.pjt_cuda_memfloor_occupancy, [i32] * 4 + [ptr, ptr]),
-                    (lib.pjt_cuda_mxu2pass_occupancy,
-                     [i32, ctypes.c_int64, ptr, ptr, ptr]),
-                    (lib.pjt_cuda_mxu64_occupancy,
-                     [ctypes.c_int64, ptr, ptr, ptr]),
-                    (lib.pjt_cuda_raster_occupancy, [i32] * 5 + [ptr, ptr]),
-                    (lib.pjt_cuda_raster_rows_occupancy,
-                     [i32] * 4 + [ptr, ptr]),
                     (lib.pjt_cuda_raster_rows,
-                     [ptr, ctypes.c_int64] + [i32] * 5 + [ptr]),
-                    (lib.pjt_cuda_dequant_occupancy, [i32] * 2 + [ptr]),
-                    (lib.pjt_cuda_idct_occupancy, [ptr, ptr]),
-                    (lib.pjt_cuda_color_occupancy, [i32] * 4 + [ptr, ptr])):
+                     [ptr, ctypes.c_int64] + [i32] * 5 + [ptr])):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

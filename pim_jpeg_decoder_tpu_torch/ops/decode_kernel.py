@@ -316,25 +316,6 @@ def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
     return out
 
 
-def tile_occupancy(wire_bytes: int, mode: S.ModeSpec, ycbcr: bool,
-                   vec16: bool = True, scale: int = 1) -> Tuple[int, int]:
-    """``(blocks per SM, dynamic shared memory bytes)`` of the tile kernel
-    that a decode of ``mode`` on this wire launches (``scale`` 1: ycbcr or
-    rgb; 2/4/8: rgb_scaled; ``vec16``: the 16-byte-store form taken when
-    M % 16 == 0), from the CUDA occupancy calculator on the current
-    card."""
-    import ctypes
-
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    blocks, smem = ctypes.c_int(), ctypes.c_int()
-    rc = load().pjt_cuda_decode_occupancy(
-        wire_bytes, mode.h, mode.v, mode.ncomp, int(ycbcr), scale,
-        int(vec16), ctypes.byref(blocks), ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return blocks.value, smem.value
-
-
 def decode_mcus(coeffs: torch.Tensor, qidx: torch.Tensor,
                 qpool: torch.Tensor, mode: S.ModeSpec, *, raw: bool = False,
                 ycbcr: bool = False, scale: int = 1) -> torch.Tensor:
@@ -483,38 +464,6 @@ def raster_shifted(raw_ptr: int, num_mcus: int, batch: int, gh: int,
     (``band_shifted``) reads the same rule to size the band's rows."""
     return not row_form and (raw_ptr % 16 != 0 or num_mcus % 16 != 0
                              or (gw % 16 != 0 and batch * gh > 1))
-
-
-def band_row_bytes(gw: int, shifted: bool) -> int:
-    """Bytes of a banded-form shared-memory row, as the launcher picks
-    them: 32 where every run of up to ``min(gw, 32)`` bytes fits with its
-    shift (no shift, or ``gw`` <= 17), else 48."""
-    return 48 if shifted and min(gw, 32) + 15 > 32 else 32
-
-
-def raster_occupancy(mode: S.ModeSpec, scale: int,
-                     dtype: Optional[torch.dtype] = None,
-                     rows: bool = False,
-                     row_bytes: int = 32) -> Tuple[int, int]:
-    """``(blocks per SM, dynamic shared memory bytes)`` of the epilogue
-    kernel that ``mode`` at ``scale`` launches for output ``dtype`` (None:
-    uint8), in its banded form with shared-memory rows of ``row_bytes``
-    (32 or 48: :func:`band_row_bytes`) or (``rows``; scale 1 of modes two
-    blocks wide only) its row form, from the CUDA occupancy calculator on
-    the current card."""
-    import ctypes
-
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    lib = load()
-    query = (lib.pjt_cuda_raster_rows_occupancy if rows
-             else lib.pjt_cuda_raster_occupancy)
-    blocks, smem = ctypes.c_int(), ctypes.c_int()
-    extra = () if rows else (row_bytes,)
-    rc = query(mode.v, mode.h, 8 // scale, _OUT_KINDS[dtype], *extra,
-               ctypes.byref(blocks), ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return blocks.value, smem.value
 
 
 def raster_epilogue(raw: torch.Tensor, mode: S.ModeSpec, scale: int,

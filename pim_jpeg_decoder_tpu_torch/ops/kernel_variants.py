@@ -33,8 +33,6 @@ raises; nothing falls back).  Any M is accepted.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from pim_jpeg_decoder_tpu_torch.ops import specs as S
@@ -164,42 +162,6 @@ def rgb_stacked(coeffs: torch.Tensor, qidx: torch.Tensor,
     butterfly chain."""
     return _run("stacked", "pjt_cuda_decode_rgb_stacked",
                 rgb_stacked_reference, coeffs, qidx, qpool, mode)
-
-
-def _tile_occupancy(name: str, wire_bytes: int, mode: S.ModeSpec,
-                    vec16: bool) -> Tuple[int, int]:
-    import ctypes
-
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    blocks, smem = ctypes.c_int(), ctypes.c_int()
-    rc = getattr(load(), f"pjt_cuda_{name}_occupancy")(
-        wire_bytes, mode.h, mode.v, int(vec16), ctypes.byref(blocks),
-        ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return blocks.value, smem.value
-
-
-def stacked_occupancy(wire_bytes: int, mode: S.ModeSpec,
-                      vec16: bool = True) -> Tuple[int, int]:
-    """``(blocks per SM, dynamic shared memory bytes)`` of the stacked
-    kernel a launch of ``mode`` on this wire takes (``vec16``: M % 16 ==
-    0, the 16-byte-store form), from the CUDA occupancy calculator on the
-    current card."""
-    return _tile_occupancy("stacked", wire_bytes, mode, vec16)
-
-
-def memfloor_occupancy(wire_bytes: int, mode: S.ModeSpec,
-                       vec16: bool = True) -> Tuple[int, int]:
-    """``(blocks per SM, static shared memory bytes)`` of the floor kernel
-    a launch of ``mode`` on this wire takes, as for the stacked kernel."""
-    return _tile_occupancy("memfloor", wire_bytes, mode, vec16)
-
-
-def truerez_occupancy(wire_bytes: int, mode: S.ModeSpec,
-                      vec16: bool = True) -> Tuple[int, int]:
-    """The same for the truerez kernel."""
-    return _tile_occupancy("truerez", wire_bytes, mode, vec16)
 
 
 # Launch-counter name -> (kernel wrapper, plain version).

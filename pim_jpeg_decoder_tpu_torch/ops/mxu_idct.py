@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Tuple
 
 import numpy as np
 import torch
@@ -173,41 +172,6 @@ def mxu2pass(deq: torch.Tensor, pieces: int = 1) -> torch.Tensor:
                  out.data_ptr(), deq.shape[0] * deq.shape[1], pieces, INV1,
                  INV2), out, f"pieces={pieces}, M={deq.shape[0]}")
     return out
-
-
-def mxu2pass_occupancy(pieces: int, num_blocks: int) -> Tuple[int, int, int]:
-    """``(blocks per SM, static shared memory bytes, grid)`` of the
-    ``pieces`` kernel: the CUDA occupancy calculator's blocks on the current
-    card and the CUDA blocks a launch of ``num_blocks`` 8x8 blocks takes."""
-    import ctypes
-
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    _check_pieces(pieces)
-    vals = [ctypes.c_int() for _ in range(3)]
-    rc = load().pjt_cuda_mxu2pass_occupancy(
-        pieces, num_blocks, *(ctypes.byref(v) for v in vals))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return tuple(v.value for v in vals)
-
-
-def mxu64_occupancy(num_blocks: int) -> Tuple[int, int, int]:
-    """``(blocks per SM, dynamic shared memory bytes, grid)`` of the mxu64
-    kernel: the CUDA occupancy calculator's blocks on the current card and
-    the CUDA blocks a launch of ``num_blocks`` 8x8 blocks takes."""
-    import ctypes
-
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    if (isinstance(num_blocks, bool) or not isinstance(num_blocks, int)
-            or num_blocks < 1):
-        raise ValueError(f"num_blocks must be a positive int, got "
-                         f"{num_blocks!r}")
-    vals = [ctypes.c_int() for _ in range(3)]
-    rc = load().pjt_cuda_mxu64_occupancy(
-        num_blocks, *(ctypes.byref(v) for v in vals))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return tuple(v.value for v in vals)
 
 
 def mxu64(deq: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,6 @@ the call raises; nothing falls back).  Any M is accepted.  Composed,
 
 from __future__ import annotations
 
-from typing import List, Tuple
-
 import torch
 
 from pim_jpeg_decoder_tpu_torch.ops import specs as S
@@ -132,40 +130,6 @@ def dequantize_stage(coeffs: torch.Tensor, qidx: torch.Tensor,
                  qpool.data_ptr(), qpool.shape[0], out.data_ptr(), m,
                  mode.g), out, f"{mode.name}, M={m}")
     return out
-
-
-def _occupancy(name: str, *args, outputs: int) -> List[int]:
-    """``pjt_cuda_<name>_occupancy(*args, &out...)``: the CUDA occupancy
-    calculator's answer (blocks an SM first) on the current card."""
-    import ctypes
-
-    from pim_jpeg_decoder_tpu_torch.ops._build import load
-    vals = [ctypes.c_int() for _ in range(outputs)]
-    rc = getattr(load(), f"pjt_cuda_{name}_occupancy")(
-        *args, *(ctypes.byref(v) for v in vals))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
-    return [v.value for v in vals]
-
-
-def dequant_occupancy(wire_bytes: int, mode: S.ModeSpec) -> int:
-    """Blocks of the dequantize kernel for this wire and ``mode`` that one
-    SM holds, from the CUDA occupancy calculator on the current card."""
-    return _occupancy("dequant", wire_bytes, mode.g, outputs=1)[0]
-
-
-def idct_occupancy() -> Tuple[int, int]:
-    """``(blocks per SM, static shared memory bytes)`` of the IDCT stage
-    kernel on the current card."""
-    return tuple(_occupancy("idct", outputs=2))
-
-
-def color_occupancy(mode: S.ModeSpec, vec8: bool = True) -> Tuple[int, int]:
-    """``(blocks per SM, static shared memory bytes)`` of the colour stage
-    kernel of ``mode`` (``vec8``: the 8-byte store form, which a launch
-    takes when M % 8 == 0) on the current card."""
-    return tuple(_occupancy("color", mode.h, mode.v, mode.ncomp, int(vec8),
-                            outputs=2))
 
 
 def idct_stage(deq: torch.Tensor, mode: S.ModeSpec) -> torch.Tensor:

@@ -25,8 +25,7 @@ Variants (all by default), from ``ops/kernel_variants.py``:
 - ``chroma_truerez``: ``rgb_truerez``; ``stacked``: ``rgb_stacked``.
 
 :func:`sweep` times every variant at each launch size of ``SWEEP_M``
-(2,048 to 196,608 MCUs), the same draw at that M; ``chip_smoke.py``
-prints it.
+(2,048 to 196,608 MCUs), the same draw at that M.
 
 Not run: ``stacked_fusedmm`` differs from ``stacked`` only in gathering
 the quantizers with one one-hot matmul on the TPU's matrix unit, which on

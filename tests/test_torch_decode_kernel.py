@@ -158,8 +158,8 @@ def test_out_of_range_qidx_matches_jax_kernel(mode_key):
 
 
 def test_tile_constants_match_the_header():
-    """``TILE_MCUS`` / ``TILE_THREADS`` (read by chip_smoke.py's SASS
-    accounting) are the values csrc/decode_tile.cuh compiles with."""
+    """``TILE_MCUS`` / ``TILE_THREADS`` are the values
+    csrc/decode_tile.cuh compiles with."""
     import os
     import re
 

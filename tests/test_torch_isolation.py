@@ -1,6 +1,7 @@
 """The PyTorch port stays free of JAX, never hides a missing card, and
 builds its CUDA kernels for Hopper into a gitignored directory."""
 
+import importlib.util
 import os
 import re
 import shutil
@@ -299,3 +300,35 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                                   timeout=300)
             assert proc.returncode != 0
             assert '"ok": true' not in proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _chip_smoke()
+
+
+@pytest.mark.parametrize("name", list(SMOKE.KERNELS))
+def test_kernels_record_names_real_sources(name):
+    """Each entry of chip_smoke.py's kernels record: its CUDA source exists
+    and defines an ``extern "C"`` entry point, the TPU kernel it replaces
+    is cited as ``path:line`` of an existing file with that line, and the
+    record gives it exactly its name, route, source, citation, launch
+    count and largest error."""
+    source, replaces = SMOKE.KERNELS[name]
+    with open(os.path.join(REPO, source)) as f:
+        assert re.search(r'extern "C"\s+\w+\s+pjt_cuda_\w+\s*\(', f.read())
+    path, line = replaces.rsplit(":", 1)
+    with open(os.path.join(REPO, path)) as f:
+        assert 1 <= int(line) <= sum(1 for _ in f)
+    counts = {k: i for i, k in enumerate(SMOKE.KERNELS)}
+    errors = {k: 0 for k in SMOKE.KERNELS}
+    entry = SMOKE.kernels_record(counts, errors)["kernels"][counts[name]]
+    assert entry == {"name": SMOKE.JSON_NAMES.get(name, f"decode_{name}"),
+                     "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": counts[name], "max_abs_err": 0}

@@ -194,7 +194,7 @@ def test_tool_difference_record():
 
 def test_mxu2pass_geometry_matches_the_header():
     """``MXU2PASS_TILE`` / ``TILES_PER_WARP`` / ``WARPS_PER_BLOCK`` (read
-    by chip_smoke.py's edge cases and SASS accounting) are the values
+    by chip_smoke.py's edge cases) are the values
     csrc/mxu_idct.cu compiles mxu2pass_kernel with."""
     import re
 
@@ -211,7 +211,7 @@ def test_mxu2pass_geometry_matches_the_header():
 
 def test_mxu64_geometry_matches_the_header():
     """``MXU64_TILE`` / ``MXU64_PAIR`` / ``MXU64_UNITS`` / ``MXU64_WARPS``
-    (read by chip_smoke.py's edge cases and SASS accounting) are the values
+    (read by chip_smoke.py's edge cases) are the values
     csrc/mxu_idct.cu compiles mxu64_kernel with."""
     import re
 
@@ -224,14 +224,6 @@ def test_mxu64_geometry_matches_the_header():
                         ("M64_WARPS", X.MXU64_WARPS)):
         found = re.search(rf"constexpr int {name} = (\d+);", text)
         assert found and int(found.group(1)) == value
-
-
-@pytest.mark.parametrize("num_blocks", [0, -5, 2.5, True, "64"])
-def test_mxu64_occupancy_rejects_bad_block_counts(num_blocks):
-    """The occupancy query takes a positive int of 8x8 blocks and raises
-    before it builds or loads anything."""
-    with pytest.raises(ValueError):
-        X.mxu64_occupancy(num_blocks)
 
 
 def test_mxu64_edge_shapes_cover_its_branches():
@@ -266,8 +258,8 @@ def _chip_smoke():
 def test_kernels_line_names_each_mxu2pass_instantiation(name, pieces):
     """chip_smoke's kernels line has an entry for each pieces of mxu2pass
     (``mxu2pass4`` is pieces 2), under a name of its own, from the same
-    source and TPU kernel, held to its own tolerance and timed as a tool
-    variant; the IDCT tool runs both."""
+    source and TPU kernel, held to its own tolerance; the IDCT tool runs
+    both."""
     C = _chip_smoke()
     assert name in C.KERNELS and name in T.VARIANTS
     assert C.KERNELS[name] == C.KERNELS["mxu2pass"]

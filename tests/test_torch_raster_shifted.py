@@ -1,10 +1,9 @@
-"""The epilogue's shifted-copy counter and row width on the CPU.
+"""The epilogue's shifted-copy counter on the CPU.
 
 ``raster_shifted`` is the host's reading of when a banded-form launch of
 ``csrc/raster_epilogue.cu`` copies input runs that start off the 16-byte
-grid (the launch counter ``raster_shifted``), and ``band_row_bytes`` the
-shared-memory row the launcher then gives each run.  The kernel itself is
-held against its plain version on the card by chip_smoke.py."""
+grid (the launch counter ``raster_shifted``).  The kernel itself is held
+against its plain version on the card by chip_smoke.py."""
 
 import pytest
 import torch
@@ -65,19 +64,6 @@ def test_the_row_form_never_counts(raw_ptr, m, batch, gh, gw):
     """A launch the row form takes copies whole runs of R*gw bytes, never
     shifted ones, wherever its input lies."""
     assert not K.raster_shifted(raw_ptr, m, batch, gh, gw, row_form=True)
-
-
-def test_row_width_fits_every_run_and_its_shift():
-    """32-byte rows where no run is shifted or every run is at most 17
-    bytes (15 + 17 = 32), 48 otherwise; the crop cell's 4:2:0 group keeps
-    32, its 4:4:4 group takes 48."""
-    for gw in range(1, 100):
-        assert K.band_row_bytes(gw, False) == 32
-        want = 32 if min(gw, 32) <= 17 else 48
-        assert K.band_row_bytes(gw, True) == want
-        assert K.band_row_bytes(gw, True) >= min(gw, 32) + 15
-    assert K.band_row_bytes(15, True) == 32
-    assert K.band_row_bytes(29, True) == 48
 
 
 def test_counter_is_listed_and_cpu_calls_count_nothing():

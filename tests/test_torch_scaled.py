@@ -282,49 +282,3 @@ def test_even_odd_pass_equals_both_matrix_passes(draw, n, shift):
         # The draw reaches the wrap: the int64 sums leave the int32 range.
         wide = np.asarray(mat, np.int64) @ x.astype(np.int64)
         assert (np.abs(wide) > 2 ** 31).any()
-
-
-def _chip_smoke():
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(K.__file__), os.pardir, os.pardir,
-                        "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.mark.parametrize("n, ops", [(1, 1), (2, 4), (4, 14), (8, 50)])
-def test_even_odd_operation_count(n, ops):
-    """chip_smoke's count of one pass's sums in the even/odd form is the
-    model's: multiplies and adds of ``_even_odd_sums`` traced by hand,
-    against the matrix form's n (2n - 1)."""
-    C = _chip_smoke()
-    assert C.reduced_pass_ops(n) == ops
-    assert ops <= n * (2 * n - 1)
-
-
-@pytest.mark.parametrize("scale, wire, nbytes, ops", [
-    (2, 1, 452, 5120), (2, 2, 708, 5120), (4, 1, 244, 1056),
-    (8, 1, 208, 232)])
-def test_scaled_bound_recount(scale, wire, nbytes, ops):
-    """The scaled kernel's bound at 4:2:0, an MCU: bytes (the 32-byte
-    sectors of the rows read, the output, qidx) and operations in the least
-    exact form (the dequantize of the coefficients read, the even/odd
-    IDCTs, BT.601); a launch adds the pool once.  At scale 2 the
-    matrix-form count beside it (8,384 operations, the whole wire)
-    reproduces the 49.20 us bound the first form was held to at M=196,608,
-    int8."""
-    C = _chip_smoke()
-    mode = S.mode_for((2, 2, 3))
-    assert C.scaled_mcu_counts(mode, scale, wire) == (nbytes, ops)
-    assert C.scaled_bound(mode, scale, 1000, wire) == C.bound(
-        1000 * nbytes + 16 * mode.g * 64 * 4, 1000 * ops)
-    if (scale, wire) == (2, 1):
-        assert C.scaled_mcu_counts(mode, 2, 1, matrix_form=True) == (
-            384 + 192 + 4, 8384)
-        old, by = C.scaled_bound(mode, 2, 196608, 1, matrix_form=True)
-        assert by == "operations" and round(old * 1e3, 2) == 49.20
-        new, by = C.scaled_bound(mode, 2, 196608, 1)
-        assert by == "operations" and round(new * 1e3, 2) == 30.05
