@@ -52,7 +52,11 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    IDCT and colour stage kernels where their tiles and store forms branch
    (``stage_tile_cases``: every mode, both wires, M of ``STAGE_MS`` and a
    ``[5:]`` slice; the colour stage on the IDCT output, the dequantized
-   extremes and full-range int16), tolerance 0, staged == fused;
+   extremes and full-range int16), tolerance 0, staged == fused; the RGB
+   and stacked kernels where their rows start off the 16-byte grid
+   (``row_shift_cases``: M of ``SHIFT_MS``, every row shift of the 8-byte
+   grid and the crop cell's two launches, and outputs ``SHIFT_OFFSETS``
+   bytes off the grid with guard bytes), tolerance 0;
 3. the main paths, each with the launch counts set to 0 just before it and
    read just after: ``cli.main`` on an ImageNet-val-like corpus (every BMP
    equal to the oracle raster, the same BMPs with ``--transport rgb`` and
@@ -70,8 +74,9 @@ encoder; nothing of ``pim_jpeg_decoder_tpu``).  Phases:
    batches (B=256 224x224 crops, 1 in 8 at 4:4:4 among 4:2:0, through
    ``iter_decode_batch_crops(mixed_sizes=True)`` in bfloat16 with the
    ImageNet statistics and ``decode_batch_crops`` in uint8), equal to the
-   oracle slices, with two decode and two epilogue launches a batch and
-   none in the row form; every path that
+   oracle slices, with two decode and two epilogue launches a batch,
+   every decode's rows on the 16-byte grid and no epilogue in the row
+   form; every path that
    takes a device list over two shards of the one card (``[3 multi]``:
    the engine on both transports, the single-image APIs, the B=256
    batches, the crop batch and a mixed-mode crop batch, each equal to the
@@ -344,6 +349,7 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
                      f"{mode.name} at scale {scale}")
         n_mcus += header.num_mcus
     n_tile, tile_note = tile_cases(torch, dev, rng, max_err)
+    n_shift = row_shift_cases(torch, dev, max_err)
     n_epi = epilogue_cases(torch, dev, rng, max_err)
     n_band, n_rows = epilogue_band_cases(torch, dev, rng)
     n_deq = dequant_cases(torch, dev, rng, max_err)
@@ -363,6 +369,12 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
           f"x full/cropped)", flush=True)
     print(f"[2 kernels] {n_tile} tile cases byte-identical: {tile_note}",
           flush=True)
+    print(f"[2 kernels] {n_shift} row-shift cases byte-identical: rgb and "
+          f"stacked (also == rgb kernel) x 5 modes x i16/i8 x M="
+          f"{sorted(set(SHIFT_MS + SHIFT_OFFSET_MS))}, each launch off the "
+          f"grid counted in rgb_shifted; "
+          f"rgb into outputs {list(SHIFT_OFFSETS)} bytes off the grid at M="
+          f"{list(SHIFT_OFFSET_MS)}, guard bytes untouched", flush=True)
     print(f"[2 kernels] {n_band} raster-epilogue band cases byte-identical "
           f"({n_rows} in the row form; gray and 4:2:0 x scale 1/2 x gw="
           f"{list(BAND_GWS)} x out_w 1/5/500/full less one MCU/full x "
@@ -462,6 +474,104 @@ def tile_cases(torch, dev, rng, max_err):
                    f"{sorted(set(TILE_MS) | set(EDGE_MS))} and a coeffs[5:] "
                    f"slice of 1,027 MCUs, extreme blocks and out-of-range "
                    f"qidx (Q, -1: a zero quantizer row)")
+
+
+# M values of the RGB kernels' row-shift cases: 16k + r for r = 1..15 (row
+# t of a plane starts (t * r) % 16 bytes past the 16-byte grid, so the
+# full tiles write rows at every shift), 16k + 8, and the crop cell's two
+# decode launches before their padding (4:2:0 M = 225 * 15 * 15, 4:4:4 M
+# = 31 * 29 * 29); each has a ragged last tile.
+SHIFT_MS = tuple(16 * 19 + r for r in range(1, 16)) + (16 * 20 + 8, 50625,
+                                                         26071)
+# Byte offsets of an output written through the C entry point, with M on
+# the 16-byte grid (every row then shifted by the offset) and off it.
+SHIFT_OFFSETS = (1, 2, 3, 4, 5, 6, 7, 8, 12)
+SHIFT_OFFSET_MS = (16 * 20, 16 * 19 + 5)
+
+
+def row_shift_cases(torch, dev, max_err) -> int:
+    """rgb_kernel and rgb_stacked_kernel where their rows start off the
+    16-byte grid (their byte-store form, ``store_rgb``): every mode and both
+    wires at the M values of ``SHIFT_MS`` and ``SHIFT_OFFSET_MS``, against
+    their plain versions and (stacked) the RGB kernel, tolerance 0, each
+    ``rgb`` launch off the grid counted in ``rgb_shifted``; and, at
+    ``SHIFT_OFFSET_MS``, rgb_kernel through its C entry point into outputs
+    ``SHIFT_OFFSETS`` bytes off the grid, guard bytes on both sides
+    untouched, equal to the aligned launch."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        coeffs_to_device, decode_mcus, decode_mcus_reference, launch_counts,
+        qpool_to_device)
+    from pim_jpeg_decoder_tpu_torch.ops.kernel_variants import KERNELS
+
+    rng = np.random.default_rng(SEED + 26)
+
+    def same(name, got, want, what) -> None:
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if got.shape != want.shape or err:
+            fail(f"{name} kernel != plain version: {what} (row-shift case) "
+                 f"max|err|={err}")
+
+    lib = load()
+    cases = 0
+    for key in sorted(S.MODES):
+        mode = S.mode_for(key)
+        for wire in (np.int16, np.int8):
+            for m in sorted(set(SHIFT_MS + SHIFT_OFFSET_MS)):
+                what = f"{mode.name} {np.dtype(wire).name} M={m}"
+                coeffs, qidx, qpool = synthetic_batch(mode, m, wire, rng,
+                                                      extreme=True)
+                qidx[m // 2] = qpool.shape[0]
+                qidx[m - 1] = -1
+                x = coeffs_to_device(coeffs, dev)
+                qi = torch.from_numpy(qidx).to(dev)
+                qp = qpool_to_device(qpool, dev)
+                before = launch_counts()["rgb_shifted"]
+                fused = decode_mcus(x, qi, qp, mode, raw=True)
+                counted = launch_counts()["rgb_shifted"] - before
+                if counted != (m % 16 != 0):
+                    fail(f"rgb_shifted counted {counted} for {what}")
+                same("rgb", fused,
+                     decode_mcus_reference(x, qi, qp, mode, raw=True), what)
+                cases += 1
+                if mode.ncomp == 3:
+                    kernel, plain = KERNELS["stacked"]
+                    got = kernel(x, qi, qp, mode)
+                    same("stacked", got, plain(x, qi, qp, mode), what)
+                    if not torch.equal(got, fused):
+                        fail(f"stacked kernel != rgb kernel: {what}")
+                    cases += 2
+                if m not in SHIFT_OFFSET_MS:
+                    continue
+                want = fused.reshape(-1)
+                n = want.numel()
+                for off in SHIFT_OFFSETS:
+                    buf = torch.full((n + 32,), 0xA5, dtype=torch.uint8,
+                                     device=dev)
+                    with torch.cuda.device(dev):
+                        rc = lib.pjt_cuda_decode_rgb(
+                            x.data_ptr(), x.element_size(), qi.data_ptr(),
+                            qp.data_ptr(), qp.shape[0],
+                            buf.data_ptr() + 16 + off, m, mode.h, mode.v,
+                            mode.ncomp,
+                            torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.synchronize()
+                    if rc != 0:
+                        fail(f"rgb kernel failed to launch: {what} output "
+                             f"{off} bytes off the grid, cudaError {rc}")
+                    guards = torch.cat([buf[:16 + off], buf[16 + off + n:]])
+                    if (not torch.equal(buf[16 + off:16 + off + n], want)
+                            or bool((guards != 0xA5).any())):
+                        fail(f"rgb kernel into an output {off} bytes off "
+                             f"the grid != the aligned launch, or a guard "
+                             f"byte written: {what}")
+                    cases += 1
+                del x, qi, qp
+    torch.cuda.empty_cache()
+    return cases
 
 
 def mxu_cases(torch, dev, rng, max_err) -> str:
@@ -1399,8 +1509,11 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
                                            nm)):
             fail(f"mixed-mode crop batch ({out.dtype}) != oracle slices")
     mixed_counts = launch_counts()
+    # Every decode writes rows on the 16-byte grid (each launch's MCUs
+    # padded to a multiple of 16): none counted in rgb_shifted.
     want_counts = {"rgb": 2 * len(batches), "raster": 2 * len(batches),
-                   "rgb_scaled": 0, "raster_rows": 0, "plain_on_cuda": 0}
+                   "rgb_shifted": 0, "rgb_scaled": 0, "raster_rows": 0,
+                   "plain_on_cuda": 0}
     if any(mixed_counts[k] != v for k, v in want_counts.items()):
         fail(f"mixed-mode crop batches: launches {mixed_counts}, expected "
              f"{want_counts}")
@@ -1410,7 +1523,8 @@ def phase_batches(torch, dev, blobs, refs, crop_set) -> dict:
           f"224x224 crops of 4:2:0 {sizes['4:2:0']} and, 1 in 8, 4:4:4 "
           f"{sizes['4:4:4']}, two through iter_decode_batch_crops(mixed_sizes=True) in "
           f"bfloat16-normalised, one through decode_batch_crops in uint8: "
-          f"== oracle slices; launches rgb={mixed_counts['rgb']} raster="
+          f"== oracle slices; launches rgb={mixed_counts['rgb']} "
+          f"(off the grid {mixed_counts['rgb_shifted']}) raster="
           f"{mixed_counts['raster']} (row form "
           f"{mixed_counts['raster_rows']}) plain_on_cuda="
           f"{mixed_counts['plain_on_cuda']}", flush=True)

@@ -41,7 +41,18 @@
 //   - vector stores need every output row 16-byte aligned, i.e. M % 16 ==
 //     0 (and an aligned output): the launch picks the VEC16 kernel then,
 //     else the byte-store form (store_rgb, the MCU index fastest across a
-//     warp), which also masks the ragged last tile.
+//     warp), which also masks the ragged last tile.  A tile's 32-byte row
+//     off the grid straddles two sectors, each shared with a neighbouring
+//     tile, so any store of it writes two sectors in part; at 4:2:0 that
+//     costs the byte form about 1.5x the VEC16 kernel's time (PERF.md).
+//     Timed on the card and not kept: aligned 8-byte words built by
+//     shuffles and funnel shifts, with each row's end words stored in
+//     4/2/1-byte pieces (more partial-sector writes: 1.65x slower than the
+//     byte form), and rows staged in the dead shared memory then written
+//     a row a warp store (the byte form's sectors without its recomputed
+//     chroma terms: 7% slower at 4:2:0, 5-10% faster elsewhere).  The
+//     batch paths pad each launch's M to a multiple of 16 instead
+//     (models/input_pipeline.py).
 // The chroma IDCT is taken at chroma resolution and indexed per luma
 // pixel (chroma_pix): bit-identical to the TPU kernel's row/column
 // selection between passes, since replication commutes with the separable

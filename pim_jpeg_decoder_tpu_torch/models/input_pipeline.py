@@ -3,8 +3,13 @@
 Counterpart of ``pim_jpeg_decoder_tpu/models/input_pipeline.py``, with the
 same functions, arguments (a ``device`` in place of ``mesh``, a torch
 floating ``dtype`` in place of a jnp one, and no ``lane_tile``: the CUDA
-kernels take any MCU count, so the transport is not padded), validation
-messages and results.  The decoded pixels never
+kernels take any MCU count), validation messages and results.  Each
+launch's transport ends in ``ROW_ALIGN - 1`` zero MCUs, and each
+device decodes its images' MCUs padded to a multiple of ``ROW_ALIGN``
+(``decode_kernel.padded_mcus``: the next images' first MCUs, or those
+zeros; no epilogue reads them), so that the decode kernel's output rows
+lie on the 16-byte grid and it takes its 16-byte stores (rows off the
+grid cost it about 1.5x, PERF.md).  The decoded pixels never
 leave the card: the host ships coefficients (5-10x fewer bytes than RGB)
 and gets back nothing.
 
@@ -60,7 +65,9 @@ from pim_jpeg_decoder_tpu_torch.codec.scanner import scan_jpeg
 from pim_jpeg_decoder_tpu_torch.ops import specs as S
 from pim_jpeg_decoder_tpu_torch.models.pipeline import (build_qpool,
                                                         entropy_decode)
-from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (decode_mcus,
+from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (ROW_ALIGN,
+                                                          decode_mcus,
+                                                          padded_mcus,
                                                           raster_epilogue)
 from pim_jpeg_decoder_tpu_torch.parallel.mesh import devices_of
 from pim_jpeg_decoder_tpu_torch.parallel.sharding import (adopt, copy_to,
@@ -214,7 +221,8 @@ class _Launch:
     transport tensors (page-locked when bound for a card) and the MCU
     sub-grid each has in the transport."""
     mode: S.ModeSpec
-    # coeffs [M, g, 64], qidx, qpool[, oys, oxs[, positions]]: int32
+    # coeffs [M, g, 64], qidx, qpool[, oys, oxs[, positions]]: M is its
+    # images' MCUs and ROW_ALIGN - 1 zero MCUs (qidx 0) after them; int32
     # positions of its images in the batch, where the batch has more than
     # one launch (each device's output rows count from its first image).
     arrays: List[torch.Tensor]
@@ -258,8 +266,9 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
     batch = len(blobs)
     per_img = h0.num_mcus
     with _tstage(timers, "stage", cpu=True):
-        coeffs = np.zeros((batch * per_img, mode.g, 64), np.int16)
-        qidx = np.zeros(batch * per_img, np.int32)
+        coeffs = np.zeros((batch * per_img + ROW_ALIGN - 1, mode.g, 64),
+                          np.int16)
+        qidx = np.zeros(len(coeffs), np.int32)
     # Decode straight into the transport buffer's per-image slices.
     with _tstage(timers, "entropy"):
         _entropy_decode_pool(
@@ -333,7 +342,8 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
                        -(-crop_w // mode.mcu_px_w) + 1)
             n = len(idx)
             plans.append((mode, idx, gh_c, gw_c,
-                          np.zeros((n * gh_c * gw_c, mode.g, 64), np.int16),
+                          np.zeros((n * gh_c * gw_c + ROW_ALIGN - 1,
+                                    mode.g, 64), np.int16),
                           np.zeros(n, np.int32), np.zeros(n, np.int32)))
     with _tstage(timers, "crop_gather"):
         for mode, idx, gh_c, gw_c, coeffs, oys, oxs in plans:
@@ -356,8 +366,9 @@ def _host_stage_crops(blobs, boxes, crop_hw, scale: int,
     launches = []
     with _tstage(timers, "stage", cpu=True):
         for mode, idx, gh_c, gw_c, coeffs, oys, oxs in plans:
-            qidx = np.repeat(np.arange(len(idx), dtype=np.int32),
-                             gh_c * gw_c)
+            qidx = np.zeros(len(coeffs), np.int32)
+            qidx[:len(idx) * gh_c * gw_c] = np.repeat(
+                np.arange(len(idx), dtype=np.int32), gh_c * gw_c)
             rows = [] if len(plans) == 1 else [idx.astype(np.int32)]
             arrays = _transport(
                 (coeffs, qidx, build_qpool([headers[i] for i in idx], mode),
@@ -405,8 +416,11 @@ def _dispatch(staged: _Staged, scale: int, norm, devices, timers=None):
             for ln, i0, i1 in parts:
                 coeffs, qidx, qpool, *per_image = ln.arrays
                 per_img = ln.gh * ln.gw
-                host += [coeffs[i0 * per_img:i1 * per_img],
-                         qidx[i0 * per_img:i1 * per_img], qpool,
+                # Its images' MCUs padded to the grid, from the next
+                # images' or the transport's trailing zeros.
+                stop = i0 * per_img + padded_mcus((i1 - i0) * per_img)
+                host += [coeffs[i0 * per_img:stop],
+                         qidx[i0 * per_img:stop], qpool,
                          *(a[i0:i1] for a in per_image[:2])]
                 if shared:   # rows of this device's output
                     host.append(per_image[2][i0:i1] - b0 if b0

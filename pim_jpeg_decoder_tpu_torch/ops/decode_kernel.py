@@ -44,9 +44,11 @@ from pim_jpeg_decoder_tpu_torch.ops.idct_math import idct_1d
 # epilogue launch, "raster_rows" those that took its row form (full
 # batches in bands of whole MCU rows, see csrc/raster_epilogue.cu), and
 # "raster_shifted" those of its banded form that copy runs off the 16-byte
-# grid (:func:`raster_shifted`).
-_counts: Dict[str, int] = {"rgb": 0, "ycbcr": 0, "rgb_scaled": 0,
-                           "raster": 0, "raster_rows": 0,
+# grid (:func:`raster_shifted`); "rgb_shifted" counts the "rgb" launches
+# whose output rows start off that grid, which take byte stores
+# (:func:`rgb_shifted`).
+_counts: Dict[str, int] = {"rgb": 0, "rgb_shifted": 0, "ycbcr": 0,
+                           "rgb_scaled": 0, "raster": 0, "raster_rows": 0,
                            "raster_shifted": 0, "dequant": 0,
                            "idct": 0, "color": 0,
                            "memfloor": 0, "truerez": 0, "stacked": 0,
@@ -281,6 +283,29 @@ def _check_inputs(coeffs, qidx, qpool, mode: S.ModeSpec) -> None:
             raise ValueError("inputs must be contiguous")
 
 
+# The byte grid of the tile kernels' row stores (VEC in csrc/decode_tile.cuh).
+ROW_ALIGN = 16
+
+
+def rgb_shifted(out_ptr: int, num_mcus: int) -> bool:
+    """Whether an RGB decode launch writes rows off the 16-byte grid: its
+    output address ``out_ptr`` or ``num_mcus`` (M, the length of a row) is
+    off it.  The launcher in ``csrc/decode_kernel.cu`` (``decode``) reads
+    the same rule to pick the kernel without 16-byte stores, which writes
+    every row a byte a lane (``store_rgb``): about 1.5x the time of the
+    16-byte form at 4:2:0, for the sectors it writes in part (PERF.md).
+    The batch paths pad M to avoid it (:func:`padded_mcus`)."""
+    return out_ptr % ROW_ALIGN != 0 or num_mcus % ROW_ALIGN != 0
+
+
+def padded_mcus(num_mcus: int) -> int:
+    """``num_mcus`` rounded up to a multiple of ``ROW_ALIGN``: a launch of
+    that many MCUs, the last ones zero, writes its rows on the 16-byte
+    grid (into a fresh output), and a consumer that reads only the first
+    ``num_mcus`` columns sees the same bytes."""
+    return num_mcus + -num_mcus % ROW_ALIGN
+
+
 def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
             scale: int):
     from pim_jpeg_decoder_tpu_torch.ops._build import load
@@ -313,6 +338,8 @@ def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
                            f"scale {scale}, M={m}) failed to launch: "
                            f"cudaError {rc}")
     _count(name)
+    if name == "rgb" and rgb_shifted(out.data_ptr(), m):
+        _count("rgb_shifted")
     return out
 
 

@@ -31,7 +31,10 @@ benchmark's batch (``LOADER_BATCH``: 256 images of 16 x 16 4:2:0 MCUs,
 256x256) at scale 1 -> bfloat16 with CLIP's statistics; the crop cell's two
 launches (``CROP_CELL_GEOMETRIES``: 4:2:0 B=225 on 15 x 15 MCUs and 4:4:4
 B=31 on 29 x 29, 224x224 crops -> bfloat16 through destination rows into
-one output of 256); the dequantize stage
+one output of 256) and its two decode launches unpadded, beside their
+nearest M on the 16-byte grid (``CROP_CELL_DECODES``: ``rgb_kernel`` int16 at
+4:2:0, M=50,625 and 50,624, and 4:4:4, M=26,071 and 26,064); the
+dequantize stage
 (``DEQUANT_GEOMETRIES``) at 4:2:0, M=16,384 and 196,608, on both wires;
 the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
 4:2:0, M=16,384 and 196,608, int16: the IDCT on the dequantize stage's
@@ -123,6 +126,15 @@ CROP_CELL_GEOMETRIES: Tuple[Tuple[tuple, int, int], ...] = (
     ((2, 2, 3), 225, 15), ((1, 1, 3), 31, 29))
 CROP_CELL_BATCH = 256
 CROP_CELL_CROP = (224, 224)
+# The crop cell's two decode launches in that split (rgb_kernel on the
+# int16 wire, M = B * g * g: 225 * 15 * 15 at 4:2:0, 31 * 29 * 29 at
+# 4:4:4), each followed by the nearest M below it on the 16-byte grid, so
+# that the form whose rows start off the grid is timed beside the one whose
+# rows start on it (the batch paths now pad such a launch to the grid).
+# ((h, v, ncomp), M)
+CROP_CELL_DECODES: Tuple[Tuple[tuple, int], ...] = (
+    ((2, 2, 3), 50625), ((2, 2, 3), 50624),
+    ((1, 1, 3), 26071), ((1, 1, 3), 26064))
 # (M, wire bytes) of the dequantize stage at 4:2:0
 DEQUANT_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
     (16384, 2), (16384, 1), (196608, 2), (196608, 1))
@@ -220,6 +232,8 @@ def geometry_names() -> List[str]:
             + [epilogue_name(label, batch)
                for label, batch, *_ in EPILOGUE_GEOMETRIES]
             + [crop_cell_name(*g) for g in CROP_CELL_GEOMETRIES]
+            + [geometry_name("rgb", S.mode_for(key).name, m, 2)
+               for key, m in CROP_CELL_DECODES]
             + [dequant_name(m, w) for m, w in DEQUANT_GEOMETRIES]
             + [stage_name(stage, m) for stage, m in stage_geometries()]
             + [scaled_name(*g) for g in SCALED_GEOMETRIES]
@@ -400,6 +414,13 @@ def side() -> dict:
         fn, raws = _crop_cell_case(torch, key, b, g, dev)
         measure(crop_cell_name(key, b, g), fn, raws)
         del fn, raws
+        torch.cuda.empty_cache()
+    for key, m in CROP_CELL_DECODES:
+        decode_mode = S.mode_for(key)
+        bufs = _inputs(torch, decode_mode, m, 2, dev)
+        measure(geometry_name("rgb", decode_mode.name, m, 2),
+                lambda b: decode_mcus(*b, decode_mode, raw=True), bufs)
+        del bufs
         torch.cuda.empty_cache()
     for m, wire in DEQUANT_GEOMETRIES:
         bufs = _inputs(torch, mode, m, wire, dev)

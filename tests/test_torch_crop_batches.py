@@ -141,8 +141,11 @@ def test_mode_groups_are_launches_in_first_appearance_order():
                             -(-CROP[0] // ln.mode.mcu_px_h) + 1)
         assert ln.gw == min(max(h.mcu_cols for h in heads),
                             -(-CROP[1] // ln.mode.mcu_px_w) + 1)
-        assert ln.arrays[0].shape == (len(heads) * ln.gh * ln.gw,
-                                      ln.mode.g, 64)
+        # Its sub-grids, then 15 zero MCUs (qidx 0), room to pad any
+        # device's part of the launch to a multiple of 16.
+        m = len(heads) * ln.gh * ln.gw
+        assert ln.arrays[0].shape == (m + 15, ln.mode.g, 64)
+        assert not ln.arrays[0][m:].any() and not ln.arrays[1][m:].any()
 
 
 
@@ -175,8 +178,8 @@ def test_a_single_mode_batch_is_one_launch_as_before():
                                  False, False)
     (ln,) = staged.launches
     assert ln.index is None and len(ln.arrays) == 5
-    assert ln.arrays[1].tolist() == list(np.repeat(np.arange(len(spec)),
-                                                   ln.gh * ln.gw))
+    assert ln.arrays[1].tolist() == (
+        list(np.repeat(np.arange(len(spec)), ln.gh * ln.gw)) + [0] * 15)
     out, _ = T.decode_batch_crops(blobs, boxes, CROP, device="cpu")
     _same(out, R.crop_batch(blobs, boxes, CROP))
 
@@ -295,3 +298,48 @@ def test_reference_imports_no_kernel_and_no_jax():
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("devices", [1, 2, 3])
+def test_every_launch_decodes_rows_on_the_16_byte_grid(monkeypatch,
+                                                       devices):
+    """Each device decodes its images' MCUs of a launch padded to a
+    multiple of 16 (the next device's first MCUs, or the transport's
+    trailing zeros), so that its decode writes rows on the grid (not
+    counted in ``rgb_shifted``); the padding changes no output byte."""
+    seen = []
+    original = T.decode_mcus
+
+    def recording(coeffs, qidx, qpool, mode, **kwargs):
+        seen.append((mode.name, coeffs.shape[0], qidx.shape[0]))
+        return original(coeffs, qidx, qpool, mode, **kwargs)
+    monkeypatch.setattr(T, "decode_mcus", recording)
+    out, _ = T.decode_batch_crops(BLOBS, BOXES, CROP,
+                                  device=["cpu"] * devices)
+    staged = T._host_stage_crops(BLOBS, BOXES, CROP, 1, 1, "auto", "test",
+                                 False, False)
+    want = []
+    for b0, b1 in T._groups(len(BLOBS), devices):
+        for ln in staged.launches:
+            mine = [i for i in ln.index if b0 <= i < b1]
+            if mine:
+                m = K.padded_mcus(len(mine) * ln.gh * ln.gw)
+                assert m % 16 == 0 and not K.rgb_shifted(1 << 20, m)
+                want.append((ln.mode.name, m, m))
+    assert seen == want
+    _same(out, R.crop_batch(BLOBS, BOXES, CROP))
+
+
+def test_same_size_batches_are_padded_too():
+    """The same-size path's transport: each image's MCUs, then 15 zero
+    MCUs (qidx 0); one device decodes them padded to a multiple of 16."""
+    blobs = [_file(i, 40, 56, "4:2:0") for i in range(3)]
+    staged = T._host_stage(blobs, 1, "auto", "test", 1, False)
+    (ln,) = staged.launches
+    per_img = ln.gh * ln.gw
+    m = 3 * per_img
+    assert m % 16 and ln.arrays[0].shape[0] == m + 15
+    assert ln.arrays[1].tolist() == (
+        list(np.repeat(np.arange(3), per_img)) + [0] * 15)
+    assert not ln.arrays[0][m:].any()
+    assert K.padded_mcus(m) == m + -m % 16 <= m + 15

@@ -33,8 +33,8 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == (16 + 8 + 2 + 4 + 4 + 8 + 3 + 3
-                                             + 6 + 3 + 1)
+    assert len(names) == len(set(names)) == (16 + 8 + 2 + 4 + 4 + 4 + 8
+                                             + 3 + 3 + 6 + 3 + 1)
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
     for label in ("scale 1 -> uint8", "scale 2 -> bfloat16",
@@ -50,6 +50,16 @@ def test_epilogue_and_dequantize_geometries_are_named():
                  "epilogue crop cell 4:4:4 B=31 on 29x29 MCUs 224x224 "
                  "crops -> bfloat16 rows into 256"]
     assert names[16 + 8:16 + 8 + 2] == crop_cell
+    # Then its two decode launches (int16), each beside the nearest M below
+    # it on the 16-byte grid.
+    assert names[16 + 8 + 2:16 + 8 + 2 + 4] == [
+        "rgb 4:2:0 M=50625 int16", "rgb 4:2:0 M=50624 int16",
+        "rgb 4:4:4 M=26071 int16", "rgb 4:4:4 M=26064 int16"]
+    for (key, m), (_, b, g) in zip(A.CROP_CELL_DECODES[::2],
+                                   A.CROP_CELL_GEOMETRIES):
+        assert m == b * g * g and m % 16 != 0
+    for key, m in A.CROP_CELL_DECODES[1::2]:
+        assert m % 16 == 0
     assert sum(b for _, b, _ in A.CROP_CELL_GEOMETRIES) == A.CROP_CELL_BATCH
     for key, b, g in A.CROP_CELL_GEOMETRIES:
         assert b * g * g % 16 != 0
@@ -86,7 +96,7 @@ def test_idct_and_colour_geometries_are_named_and_ordered():
     IDCT before the colour stage."""
     names = A.geometry_names()
     assert A.IDCT_GEOMETRIES == A.COLOR_GEOMETRIES == (16384, 196608)
-    assert names[16 + 8 + 2 + 4:16 + 8 + 2 + 4 + 4] == [
+    assert names[16 + 8 + 2 + 4 + 4:16 + 8 + 2 + 4 + 4 + 4] == [
         "idct 4:2:0 M=16384 int16", "color 4:2:0 M=16384 int16",
         "idct 4:2:0 M=196608 int16", "color 4:2:0 M=196608 int16"]
     assert A.stage_geometries() == [("idct", 16384), ("color", 16384),
@@ -119,6 +129,8 @@ def _named_runs(us_by_name, digests=None):
     "rows into 256",
     "epilogue crop cell 4:4:4 B=31 on 29x29 MCUs 224x224 crops -> bfloat16 "
     "rows into 256",
+    "rgb 4:2:0 M=50625 int16", "rgb 4:2:0 M=50624 int16",
+    "rgb 4:4:4 M=26071 int16", "rgb 4:4:4 M=26064 int16",
     "dequant 4:2:0 M=16384 int16", "dequant 4:2:0 M=196608 int8",
     "idct 4:2:0 M=16384 int16", "idct 4:2:0 M=196608 int16",
     "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16",
@@ -210,7 +222,7 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     names = A.geometry_names()
     scaled = [A.scaled_name(*g) for g in A.SCALED_GEOMETRIES]
     stacked = [A.stacked_name(m, w) for m, w in A.STACKED_GEOMETRIES]
-    start = 16 + 8 + 2 + 4 + 4
+    start = 16 + 8 + 2 + 4 + 4 + 4
     assert names[start:start + 11] == scaled + stacked
     assert names[start + 11:] == (
         [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
