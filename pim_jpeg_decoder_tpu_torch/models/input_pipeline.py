@@ -242,6 +242,18 @@ class _Staged:
     out_w: int
 
 
+def _reduced_coefs_read(mode: S.ModeSpec, n: int) -> int:
+    """Coefficients of one MCU that the n-point reduced IDCT reads
+    (specs.py 'Reduced (scaled) IDCT'): the top-left n x n of a luma
+    block, and of a chroma block min(8, f_y n) x min(8, f_x n), where f_y,
+    f_x are luma's sampling factors over the chroma's (4:2:0 at n = 4: all
+    64)."""
+    luma = mode.luma_slots * n * n
+    if mode.ncomp == 1:
+        return luma
+    return luma + 2 * min(8, mode.v * n) * min(8, mode.h * n)
+
+
 def _transport(arrays, wire: str, pin: bool) -> List[torch.Tensor]:
     """``(coeffs, qidx, qpool[, oys, oxs])`` NumPy arrays -> host tensors:
     int8 wire when ``wire="auto"`` and the batch fits, int32 quantizers,
@@ -260,7 +272,11 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
     transport staging + wire compaction.  ``timers`` (optional
     StageTimers) accumulates scan / entropy / stage seconds, and the
     thread CPU seconds of scan and stage (the rest of their wall clock is
-    spent off a CPU: waiting for the GIL, or descheduled)."""
+    spent off a CPU: waiting for the GIL, or descheduled).  At ``scale``
+    2, 4 or 8 it also counts the coefficients of the images' MCUs placed on
+    the wire (``scale.coefs_shipped``; all 64 of every block) and those
+    the reduced IDCT reads of them (``scale.coefs_read``,
+    :func:`_reduced_coefs_read`)."""
     with _tstage(timers, "scan", cpu=True):
         headers, h0, mode = _scan_same_size(blobs, caller)
     batch = len(blobs)
@@ -280,6 +296,11 @@ def _host_stage(blobs: Sequence[bytes], prepare_threads: int, wire: str,
             qidx[i * per_img:(i + 1) * per_img] = i
         arrays = _transport((coeffs, qidx, build_qpool(headers, mode)),
                             wire, pin)
+    if scale != 1 and timers is not None:
+        mcus = batch * per_img
+        timers.count("scale.coefs_shipped", mcus * mode.g * 64)
+        timers.count("scale.coefs_read",
+                     mcus * _reduced_coefs_read(mode, 8 // scale))
     return _Staged(headers, [_Launch(mode, arrays, h0.mcu_rows, h0.mcu_cols)],
                    -(-h0.height // scale), -(-h0.width // scale))
 
@@ -474,7 +495,10 @@ def decode_same_size_batch(
     (optional ``utils.profiling.StageTimers``) accumulates scan / entropy /
     stage seconds on the host and h2d / device seconds on the card (CUDA
     events, read by ``timers.snapshot()``), and the thread CPU seconds of
-    scan and stage; the decode does not synchronise for it.  A list of
+    scan and stage; at ``scale`` 2, 4 or 8 also the counters
+    ``scale.coefs_shipped`` and ``scale.coefs_read`` (``timers.counters()``:
+    the coefficients on the wire, and those the reduced IDCT reads); the
+    decode does not synchronise for it.  A list of
     devices splits the batch into groups of whole images, one a device,
     and returns the joined tensor on the first (see the module
     docstring).  For back-to-back batches use
