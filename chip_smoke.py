@@ -350,6 +350,7 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
         n_mcus += header.num_mcus
     n_tile, tile_note = tile_cases(torch, dev, rng, max_err)
     n_shift = row_shift_cases(torch, dev, max_err)
+    loop_line = loop_cases(torch, dev, max_err)
     n_epi = epilogue_cases(torch, dev, rng, max_err)
     n_band, n_rows = epilogue_band_cases(torch, dev, rng)
     n_deq = dequant_cases(torch, dev, rng, max_err)
@@ -392,6 +393,7 @@ def phase_kernels(torch, dev, oracle_images) -> dict:
           f"the colour stage on the IDCT output, the dequantized extremes "
           f"and full-range int16 with 32767 and -32768 blocks; staged == "
           f"fused in each)", flush=True)
+    print(f"[2 kernels] {loop_line}", flush=True)
     print(f"[2 kernels] {mxu_line}", flush=True)
     print(f"[2 kernels] {vlc_line}", flush=True)
     return max_err
@@ -572,6 +574,69 @@ def row_shift_cases(torch, dev, max_err) -> int:
                 del x, qi, qp
     torch.cuda.empty_cache()
     return cases
+
+
+# Long scaled launches above one wave of resident blocks on an H100:
+# (mode key, scale, M), each on both wires.  Their blocks walk several
+# tiles where the form's tile copies enough (4:2:0 and 4:4:0 int16,
+# ops/decode_kernel.scaled_plan) and keep a block a tile elsewhere.  The
+# first four end in a ragged tile and take byte stores (M % 16 != 0); the
+# last two take 16-byte stores on full tiles, 4:2:0 at the half-scale
+# loader cell's own launch (a B=256 batch of 512x512 files).
+LOOP_CASES = (((2, 2, 3), 2, 100003), ((1, 2, 3), 2, 100003),
+              ((1, 1, 1), 2, 131091), ((1, 1, 3), 2, 65555),
+              ((2, 2, 3), 2, 262144), ((1, 2, 3), 2, 196608))
+
+
+def loop_cases(torch, dev, max_err) -> str:
+    """rgb_scaled_kernel on the long launches of ``LOOP_CASES`` (both
+    wires, extreme blocks, qidx Q and -1 in the last tile and -5 in the
+    second) against its plain version, tolerance 0, each launch counted in
+    ``rgb_scaled_looped`` exactly where its plan walks tiles, and the
+    4:2:0 and 4:4:0 int16 launches walking."""
+    from pim_jpeg_decoder_tpu_torch.ops import specs as S
+    from pim_jpeg_decoder_tpu_torch.ops.decode_kernel import (
+        TILE_MCUS, _scaled_resident, coeffs_to_device, decode_mcus,
+        decode_mcus_reference, launch_counts, qpool_to_device, scaled_plan)
+
+    rng = np.random.default_rng(SEED + 28)
+    notes = []
+    for key, scale, m in LOOP_CASES:
+        mode = S.mode_for(key)
+        for wire in (np.int16, np.int8):
+            what = f"{mode.name} {np.dtype(wire).name} scale {scale} M={m}"
+            coeffs, qidx, qpool = synthetic_batch(mode, m, wire, rng,
+                                                  extreme=True)
+            qidx[m - 2] = qpool.shape[0]
+            qidx[m - 1] = -1
+            qidx[TILE_MCUS + 3] = -5   # in a tile that starts a walk
+            x = coeffs_to_device(coeffs, dev)
+            qi = torch.from_numpy(qidx).to(dev)
+            qp = qpool_to_device(qpool, dev)
+            before = launch_counts()["rgb_scaled_looped"]
+            got = decode_mcus(x, qi, qp, mode, raw=True, scale=scale)
+            looped = launch_counts()["rgb_scaled_looped"] - before
+            blocks, per = scaled_plan(m, _scaled_resident(
+                dev.index or 0, x.element_size(), mode.h, mode.v, mode.ncomp,
+                scale, m % 16 == 0))
+            must = wire == np.int16 and key in ((2, 2, 3), (1, 2, 3))
+            if looped != (per > 1) or (must and not looped):
+                fail(f"rgb_scaled_looped counted {looped} for {what} "
+                     f"(plan {blocks} blocks x {per} tiles)")
+            want = decode_mcus_reference(x, qi, qp, mode, raw=True,
+                                         scale=scale)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            max_err["rgb_scaled"] = max(max_err["rgb_scaled"], err)
+            if got.shape != want.shape or err:
+                fail(f"rgb_scaled kernel != plain version: {what} (long "
+                     f"launch) max|err|={err}")
+            notes.append(f"{what}: {blocks} blocks x {per} tiles")
+            del x, qi, qp, got, want
+    torch.cuda.empty_cache()
+    return (f"{len(notes)} long rgb_scaled launches byte-identical, those "
+            f"that walk tiles counted in rgb_scaled_looped: "
+            + "; ".join(notes))
 
 
 def mxu_cases(torch, dev, rng, max_err) -> str:

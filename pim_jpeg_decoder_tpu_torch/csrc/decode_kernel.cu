@@ -117,6 +117,32 @@
 // tiles a block (the second's copy in flight during the first's decode),
 // two rounds a step, a zero quantizer row in place of the mask: none
 // faster at M=16,384, each slower or level at M=196,608.
+// Blocks that walk tiles.  On the int16 wire the copy does not hide: at
+// 4:2:0 scale 2, M=262,144 (a B=256 batch of 512x512 files), 110 us
+// against 89.7 on int8, the 67 MB more of rows at about their DRAM time,
+// since a block's only bytes in flight were its own tile's while its
+// warps waited.  Where a tile copies at least WALK_MIN_COPY_BYTES (4:2:0
+// and 4:4:0 at scale 2, int16) and a launch has more tiles than one wave
+// of resident blocks, every resident block walks tiles b, b + grid, ...
+// (ops/decode_kernel.scaled_plan: 660 blocks of 12-13 tiles there).  The
+// tile's luma and chroma rows are two cp.async groups into the block's one
+// copy: the next tile's luma rows are issued once this tile's luma blocks
+// are decoded, its chroma rows once the chroma blocks are, and its qidx
+// entries go with the luma rows into the other of two slots of quantizer
+// rows, each range-checked by the thread that copied it once it lands.
+// So the shared memory stays that of a block of one tile (39,680 B at
+// 4:2:0 int16, 5 blocks an SM at WALK_MIN_BLOCKS, at most 48 registers, no
+// spills) for a third barrier a tile.  The step is not inlined
+// (walk_scaled_tile).  4:2:0 int16 at M=262,144: 110.3 -> 105.5 us, at
+// 196,608: 86.8 -> 82.9; 4:4:0 int16 at 196,608: 65.3 -> 59.2 (PERF.md).  Timed and not kept: a ring of two whole tiles (4 blocks
+// an SM at int16: 106 us, int8 99), the step inlined (55-64 registers),
+// 6 blocks an SM (40 registers: level), grids of ceil(tiles / per) blocks
+// (some SMs a block short: 107 us), 2 or 4 tiles a block (105, 104 us),
+// the next copy in flight during the store only (106 us), and the walk's
+// last tile on a second copy of the decode and store (108 us).  At 4:2:0
+// int8, 4:2:2 and scale 8 every walk lost 2-14%, so those forms keep a
+// block a tile, with the shared memory and code of a block of one tile
+// before the walk.
 // Shared helpers (constants, the Loeffler pass, dequantize, BT.601, the
 // chroma index and the byte store loop) live in decode_common.cuh, with
 // the reasons for their wrap-around uint32_t arithmetic.
@@ -254,28 +280,46 @@ struct Reduced {
   }
 };
 
-// The dynamic shared memory of a scaled tile (TILE_MCUS MCUs), every part
-// 16-byte aligned: each warp's transpose scratch (the larger of its luma
-// and chroma kind), the rows the reduced IDCTs read ([MCU][slot][row][8]
-// of T: the first kLumaChunks / kChromaChunks 16-byte chunks of each block
-// on the wire, MCUs an odd number of chunks apart so that the column reads
-// of pass 1 spread over the banks), the samples ([row][MCU] int8: GY * NN
-// luma rows, slot-major, pixel px * N + py; then each chroma block's CY *
-// CX, col * CY + row) and each MCU's quantizer row (-1: qidx out of
-// range).
+// The launch bounds of a scaled kernel form whose blocks walk tiles: 5
+// blocks an SM (at most 48 registers), as many as the shared memory of
+// 4:2:0 int16 fits.
+constexpr int WALK_MIN_BLOCKS = 5;
+
+// The least copy a tile (bytes of wire rows in shared memory) for which a
+// scaled block walks several tiles.  The walk hides the copy behind the
+// decode but costs a barrier a tile and a call; on an H100 it won where a
+// tile copies 12.5-16.5 KB (4:2:0 and 4:4:0 at scale 2, int16) and lost
+// at 4:2:0 int8, 4:2:2 and scale 8 (8.5 KB and less; PERF.md).
+constexpr int WALK_MIN_COPY_BYTES = 12 * 1024;
+
+// The dynamic shared memory of a scaled decode block, every part 16-byte
+// aligned: each warp's transpose scratch (the larger of its luma and
+// chroma kind), the tile's (TILE_MCUS MCUs) copy of the rows the reduced
+// IDCTs read ([MCU][slot][row][8] of T: the first kLumaChunks /
+// kChromaChunks 16-byte chunks of each block on the wire, MCUs an odd
+// number of chunks apart so that the column reads of pass 1 spread over
+// the banks), the samples ([row][MCU] int8: GY * NN luma rows, slot-major,
+// pixel px * N + py; then each chroma block's CY * CX, col * CY + row) and
+// each MCU's quantizer row (-1: qidx out of range), in one slot, or in
+// two where the form walks tiles (this tile's and the next one's, by the
+// parity of the tile's place in the walk).  Where tiles are walked, the
+// luma and chroma chunks are copied as two groups, so the next tile's luma
+// chunks stream in while this tile's chroma blocks decode, and its chroma
+// chunks while this tile stores and the next one's luma blocks decode.
 template <typename T, int H, int V, int NC, int N>
 struct ScaledLayout {
   static constexpr int GY = H * V;
   static constexpr int G = NC == 1 ? 1 : GY + 2;
-  static constexpr int NN = N * N;
+  static constexpr int kN = N, NN = N * N;
   static constexpr int CY = V * N, CX = H * N;   // chroma rows, columns
   using Luma = Reduced<N, N>;
   using Chroma = Reduced<CY, CX>;
   static constexpr int kBytesT = static_cast<int>(sizeof(T));
   static constexpr int kLumaChunks = (N * 8 * kBytesT + VEC - 1) / VEC;
   static constexpr int kChromaChunks = (CY * 8 * kBytesT + VEC - 1) / VEC;
-  static constexpr int kMcuChunks =
-      GY * kLumaChunks + (G - GY) * kChromaChunks;
+  static constexpr int kMcuLuma = GY * kLumaChunks;   // chunks an MCU
+  static constexpr int kMcuChroma = (G - GY) * kChromaChunks;
+  static constexpr int kMcuChunks = kMcuLuma + kMcuChroma;
   static constexpr int kMcuStride = (kMcuChunks | 1) * VEC;
   static constexpr int kChromaRow0 = GY * NN;
   static constexpr int kSampleRows = NC == 1 ? GY * NN : 3 * GY * NN;
@@ -283,43 +327,53 @@ struct ScaledLayout {
       ((NC == 1 || Luma::kWarpWords >= Chroma::kWarpWords
             ? Luma::kWarpWords
             : Chroma::kWarpWords) + 3) & ~3;
+  static constexpr int kCopyBytes = TILE_MCUS * kMcuStride;
+  static constexpr bool kWalks = kCopyBytes >= WALK_MIN_COPY_BYTES;
+  static constexpr int kMinBlocks = kWalks ? WALK_MIN_BLOCKS : TILE_MIN_BLOCKS;
   static constexpr int kXpose = 0;
   static constexpr int kCoeffs = kXpose + TILE_WARPS * kWarpWords * 4;
-  static constexpr int kSamples = kCoeffs + TILE_MCUS * kMcuStride;
+  static constexpr int kSamples = kCoeffs + kCopyBytes;
   static constexpr int kQrows = kSamples + kSampleRows * SAMPLE_ROW;
-  static constexpr int kBytes = kQrows + TILE_MCUS * 4;
+  static constexpr int kBytes = kQrows + (kWalks ? 2 : 1) * TILE_MCUS * 4;
   static_assert(kCoeffs % VEC == 0 && kSamples % VEC == 0 &&
                     kQrows % VEC == 0,
                 "every part 16-byte aligned");
 
+  // The quantizer rows of a block's j-th tile.
+  __device__ static int32_t* qrows(uint8_t* smem, int j) {
+    return reinterpret_cast<int32_t*>(smem + kQrows) +
+           (kWalks ? (j & 1) * TILE_MCUS : 0);
+  }
   // First chunk of block s in an MCU's copy.
   __device__ static int block_chunk(int s) {
-    return s < GY ? s * kLumaChunks
-                  : GY * kLumaChunks + (s - GY) * kChromaChunks;
+    return s < GY ? s * kLumaChunks : kMcuLuma + (s - GY) * kChromaChunks;
   }
 };
 
-// Copy the chunks of ScaledLayout (rows 0..N-1 of each luma block, 0..CY-1
-// of each chroma block) of the tile's MCUs into shared memory with 16-byte
-// asynchronous copies, lane i on chunk i; meanwhile stage each MCU's
-// quantizer row.  Returns after both have landed.
-template <typename L, typename T>
-__device__ __forceinline__ void load_scaled_tile(
-    const T* __restrict__ coeffs, const int32_t* __restrict__ qidx, int num_q,
-    long long m0, int valid, uint8_t* smem) {
+// Issue the copies of part of a tile (the caller commits them): the chunks
+// of ScaledLayout of its valid MCUs by 16-byte asynchronous copies, lane i
+// on chunk i; LUMA and CHROMA pick the rows 0..N-1 of each luma block and
+// 0..CY-1 of each chroma block.
+template <typename L, bool LUMA, bool CHROMA, typename T>
+__device__ __forceinline__ void issue_scaled_part(const T* __restrict__ coeffs,
+                                                  long long m0, int valid,
+                                                  uint8_t* smem) {
+  constexpr int kPart =
+      (LUMA ? L::kMcuLuma : 0) + (CHROMA ? L::kMcuChroma : 0);   // an MCU
+  constexpr int kFirst = LUMA ? 0 : L::kMcuLuma;
   constexpr int kRounds =
-      (TILE_MCUS * L::kMcuChunks + TILE_THREADS - 1) / TILE_THREADS;
+      (TILE_MCUS * kPart + TILE_THREADS - 1) / TILE_THREADS;
   constexpr int kBlockBytes = 64 * L::kBytesT;
   const uint8_t* src = reinterpret_cast<const uint8_t*>(coeffs) +
                        static_cast<size_t>(m0) * L::G * kBlockBytes;
 #pragma unroll
   for (int k = 0; k < kRounds; ++k) {
     const int c = k * TILE_THREADS + threadIdx.x;
-    if (c < valid * L::kMcuChunks) {
-      const int mj = c / L::kMcuChunks, chunk = c % L::kMcuChunks;
-      const int luma = L::GY * L::kLumaChunks;
-      const int s = chunk < luma ? chunk / L::kLumaChunks
-                                 : L::GY + (chunk - luma) / L::kChromaChunks;
+    if (c < valid * kPart) {
+      const int mj = c / kPart, chunk = kFirst + c % kPart;
+      const int s = LUMA && (!CHROMA || chunk < L::kMcuLuma)
+                        ? chunk / L::kLumaChunks
+                        : L::GY + (chunk - L::kMcuLuma) / L::kChromaChunks;
       __pipeline_memcpy_async(
           smem + L::kCoeffs + mj * L::kMcuStride + chunk * VEC,
           src + (static_cast<size_t>(mj) * L::G + s) * kBlockBytes +
@@ -327,6 +381,15 @@ __device__ __forceinline__ void load_scaled_tile(
           VEC);
     }
   }
+}
+
+// A block of one tile: copy the tile's chunks, and meanwhile stage each
+// MCU's quantizer row.  Returns after both have landed.
+template <typename L, typename T>
+__device__ __forceinline__ void load_scaled_tile(
+    const T* __restrict__ coeffs, const int32_t* __restrict__ qidx, int num_q,
+    long long m0, int valid, uint8_t* smem) {
+  issue_scaled_part<L, true, true>(coeffs, m0, valid, smem);
   __pipeline_commit();
   if (threadIdx.x < TILE_MCUS) {
     int row = -1;
@@ -334,7 +397,7 @@ __device__ __forceinline__ void load_scaled_tile(
       const int qi = __ldg(qidx + m0 + threadIdx.x);
       if (static_cast<unsigned>(qi) < static_cast<unsigned>(num_q)) row = qi;
     }
-    reinterpret_cast<int32_t*>(smem + L::kQrows)[threadIdx.x] = row;
+    L::qrows(smem, 0)[threadIdx.x] = row;
   }
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -392,11 +455,11 @@ struct Kind {
   }
 
   __device__ static void load_q(int k, const int32_t* __restrict__ qpool,
-                                const uint8_t* smem, uint32_t (&q)[8]) {
+                                const int32_t* qrows, uint32_t (&q)[8]) {
     int mj, s;
     const int i = threadIdx.x % R::kLanes;
     if (!block(k, mj, s) || i >= NX) return;
-    const int row = reinterpret_cast<const int32_t*>(smem + L::kQrows)[mj];
+    const int row = qrows[mj];
     const uint32_t keep = row < 0 ? 0u : ~0u;
     const int32_t* src =
         qpool + (static_cast<size_t>(row < 0 ? 0 : row) * L::G + s) * 64 + i;
@@ -446,28 +509,33 @@ struct Kind {
 };
 
 // Every round of kind A, then of kind B (B::kRounds may be 0), each
-// round's quantizers loaded during the round before it.
-template <typename A, typename B>
+// round's quantizers (rows in `qrows`) loaded during the round before it;
+// mid() between the two kinds, in every thread (where tiles are walked,
+// B's rows land there).
+template <typename A, typename B, typename Mid>
 __device__ __forceinline__ void run_kinds(const int32_t* __restrict__ qpool,
-                                          uint8_t* smem) {
+                                          const int32_t* qrows, uint8_t* smem,
+                                          Mid mid) {
   uint32_t next[8] = {};
-  A::load_q(0, qpool, smem, next);
+  A::load_q(0, qpool, qrows, next);
 #pragma unroll
   for (int k = 0; k < A::kRounds + B::kRounds; ++k) {
     uint32_t q[8];
 #pragma unroll
     for (int v = 0; v < 8; ++v) q[v] = next[v];
     if (k + 1 < A::kRounds) {
-      A::load_q(k + 1, qpool, smem, next);
+      A::load_q(k + 1, qpool, qrows, next);
     } else if (k + 1 < A::kRounds + B::kRounds) {
-      B::load_q(k + 1 - A::kRounds, qpool, smem, next);
+      B::load_q(k + 1 - A::kRounds, qpool, qrows, next);
     }
+    if (k == A::kRounds) mid();
     if (k < A::kRounds) {
       A::run(k, q, smem);
     } else {
       B::run(k - A::kRounds, q, smem);
     }
   }
+  if (B::kRounds == 0) mid();
 }
 
 template <typename T, int G, bool VEC16>
@@ -519,35 +587,19 @@ rgb_kernel(const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
       m0, num_mcus, valid);
 }
 
-// Scaled decode at 1/(8/N), output [3, GY, N*N, M], pixels column-major
-// (px*N + py).  A luma block takes the N-point reduced IDCT (N*N samples);
-// a chroma block the (V*N) x (H*N)-point one, since it covers V x H luma
-// blocks: no upsampling at scale >= 2, each luma slot (qv, qh) reads its
-// N x N region, and each chroma sample serves one luma pixel.  The tile
-// decodes its luma blocks, then its chroma blocks (run_kinds), and
-// stores like rgb_kernel: gray 16 bytes a lane, colour 8 pixels of a row a
-// lane (their BT.601 terms, then 8 bytes a plane), byte stores without
-// VEC16.
-template <typename T, int H, int V, int NC, int N, bool VEC16>
-__global__ void __launch_bounds__(TILE_THREADS, TILE_MIN_BLOCKS)
-rgb_scaled_kernel(const T* __restrict__ coeffs,
-                  const int32_t* __restrict__ qidx,
-                  const int32_t* __restrict__ qpool, int num_q,
-                  uint8_t* __restrict__ out, long long num_mcus) {
-  using L = ScaledLayout<T, H, V, NC, N>;
-  constexpr int GY = L::GY, NN = L::NN, CY = L::CY;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int8_t* samples =
-      reinterpret_cast<const int8_t*>(smem + L::kSamples);
-  const long long m0 = static_cast<long long>(blockIdx.x) * TILE_MCUS;
-  const int valid = tile_valid(m0, num_mcus);
-  load_scaled_tile<L>(coeffs, qidx, num_q, m0, valid, smem);
-  using Luma = Kind<L, T, N, N, 0, GY, 0>;
-  using Chroma = Kind<L, T, CY, L::CX, GY, NC == 3 ? 2 : 0,
-                      Luma::kWarpRounds % TILE_WARPS>;
-  run_kinds<Luma, Chroma>(qpool, smem);
-  __syncthreads();
-
+// The RGB store of a decoded scaled tile: samples ([row][MCU] int8, rows of
+// SAMPLE_ROW bytes) to uint8 [3, GY, NN, M] after the block's barrier.
+// Gray: 16 bytes of a row a lane, to all three planes; colour: 8 pixels of
+// a row a lane, their BT.601 terms, then 8 bytes a plane; without VEC16
+// (a row off the 16-byte grid) store_rgb's byte stores, which also mask
+// the ragged last tile.
+template <typename L, int H, int NC, bool VEC16>
+__device__ __forceinline__ void store_scaled_tile(const int8_t* samples,
+                                                  uint8_t* __restrict__ out,
+                                                  long long m0,
+                                                  long long num_mcus,
+                                                  int valid) {
+  constexpr int GY = L::GY, NN = L::NN, CY = L::CY, N = L::kN;
   const size_t plane = static_cast<size_t>(GY) * NN * num_mcus;
   // The sample row of the chroma pixel that luma pixel pix of slot sl reads
   // (decode_kernel.py's region (qv, qh) of the chroma IDCT).
@@ -603,6 +655,135 @@ rgb_scaled_kernel(const T* __restrict__ coeffs,
   }
 }
 
+// Where tiles are walked: issue one part of this block's j-th tile, tile
+// t, and commit it as one group; the luma part with the tile's qidx
+// entries (4-byte copies into its quantizer rows, checked where they land,
+// walk_scaled_tile).
+template <typename L, typename T>
+__device__ __forceinline__ void issue_scaled(const T* __restrict__ coeffs,
+                                             const int32_t* __restrict__ qidx,
+                                             long long num_mcus, long long t,
+                                             int j, bool luma) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const long long m0 = t * TILE_MCUS;
+  const int valid = tile_valid(m0, num_mcus);
+  if (luma) {
+    issue_scaled_part<L, true, false>(coeffs, m0, valid, smem);
+    if (static_cast<int>(threadIdx.x) < valid) {
+      __pipeline_memcpy_async(L::qrows(smem, j) + threadIdx.x,
+                              qidx + m0 + threadIdx.x, 4);
+    }
+  } else {
+    issue_scaled_part<L, false, true>(coeffs, m0, valid, smem);
+  }
+  __pipeline_commit();
+}
+
+// The luma blocks of the block's j-th tile, tile t, in shared memory, then
+// its chroma blocks (run_kinds, mid() between them), a barrier, freed()
+// (nothing reads the copy any more), then the tile's store.
+template <typename T, int H, int V, int NC, int N, bool VEC16, typename Mid,
+          typename Freed>
+__device__ __forceinline__ void decode_scaled_tile(
+    const int32_t* __restrict__ qpool, uint8_t* __restrict__ out,
+    long long num_mcus, long long t, int j, Mid mid, Freed freed) {
+  using L = ScaledLayout<T, H, V, NC, N>;
+  constexpr int GY = L::GY;
+  using Luma = Kind<L, T, N, N, 0, GY, 0>;
+  using Chroma = Kind<L, T, L::CY, L::CX, GY, NC == 3 ? 2 : 0,
+                      Luma::kWarpRounds % TILE_WARPS>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  run_kinds<Luma, Chroma>(qpool, L::qrows(smem, j), smem, mid);
+  __syncthreads();
+  freed();
+  const long long m0 = t * TILE_MCUS;
+  store_scaled_tile<L, H, NC, VEC16>(
+      reinterpret_cast<const int8_t*>(smem + L::kSamples), out, m0,
+      num_mcus, tile_valid(m0, num_mcus));
+}
+
+// The j-th tile of this block's walk, tile t, whose luma and chroma parts
+// are the two newest commit groups: wait for the luma part and turn each
+// qidx entry this thread copied into its quantizer row (-1: out of range,
+// as load_scaled_tile stages it), decode the luma blocks, wait for the
+// chroma part and issue the next tile's luma part, decode the chroma
+// blocks, issue the next tile's chroma part, store.  The walk's last tile
+// issues nothing, through the same single copy of the decode and store (a
+// second copy for it took 4% more at 4:2:0 int16).  Not inlined: inlined
+// into the kernel's loop, the compiler keeps every tile-invariant address
+// live across it (55-64 registers, 4 blocks an SM, where a block of one
+// tile takes 40).
+template <typename T, int H, int V, int NC, int N, bool VEC16>
+__device__ __noinline__ void walk_scaled_tile(
+    const T* __restrict__ coeffs, const int32_t* __restrict__ qidx,
+    const int32_t* __restrict__ qpool, int num_q, uint8_t* __restrict__ out,
+    long long num_mcus, long long t, int j) {
+  using L = ScaledLayout<T, H, V, NC, N>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const long long next = t + gridDim.x;
+  const bool ahead = next * TILE_MCUS < num_mcus;
+  __pipeline_wait_prior(1);
+  if (threadIdx.x < TILE_MCUS) {
+    int32_t* rows = L::qrows(smem, j);
+    int row = -1;
+    if (static_cast<int>(threadIdx.x) < tile_valid(t * TILE_MCUS, num_mcus)) {
+      const int qi = rows[threadIdx.x];
+      if (static_cast<unsigned>(qi) < static_cast<unsigned>(num_q)) row = qi;
+    }
+    rows[threadIdx.x] = row;
+  }
+  __syncthreads();   // the luma part has landed; the last store has read
+  decode_scaled_tile<T, H, V, NC, N, VEC16>(
+      qpool, out, num_mcus, t, j,
+      [&] {
+        __pipeline_wait_prior(0);
+        __syncthreads();   // the chroma part has landed; luma is read
+        if (ahead) issue_scaled<L>(coeffs, qidx, num_mcus, next, j + 1, true);
+      },
+      [&] {
+        if (ahead) issue_scaled<L>(coeffs, qidx, num_mcus, next, j + 1, false);
+      });
+}
+
+// Scaled decode at 1/(8/N), output [3, GY, N*N, M], pixels column-major
+// (px*N + py).  A luma block takes the N-point reduced IDCT (N*N samples);
+// a chroma block the (V*N) x (H*N)-point one, since it covers V x H luma
+// blocks: no upsampling at scale >= 2, each luma slot (qv, qh) reads its
+// N x N region, and each chroma sample serves one luma pixel.  A tile's
+// luma blocks decode, then its chroma blocks (run_kinds), and it stores
+// like rgb_kernel (gray 16 bytes a lane, colour 8 pixels of a row a lane:
+// their BT.601 terms, then 8 bytes a plane; byte stores without VEC16).
+// A form whose tile copies at least WALK_MIN_COPY_BYTES may walk tiles b,
+// b + gridDim.x, ... (walk_scaled_tile), the next tile's copy streaming in
+// meanwhile; any other form takes a block a tile.
+template <typename T, int H, int V, int NC, int N, bool VEC16>
+__global__ void __launch_bounds__(TILE_THREADS,
+                                  (ScaledLayout<T, H, V, NC, N>::kMinBlocks))
+rgb_scaled_kernel(const T* __restrict__ coeffs,
+                  const int32_t* __restrict__ qidx,
+                  const int32_t* __restrict__ qpool, int num_q,
+                  uint8_t* __restrict__ out, long long num_mcus) {
+  using L = ScaledLayout<T, H, V, NC, N>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  if constexpr (L::kWalks) {
+    const long long tiles = (num_mcus + TILE_MCUS - 1) / TILE_MCUS;
+    const long long step = gridDim.x;
+    issue_scaled<L>(coeffs, qidx, num_mcus, blockIdx.x, 0, true);
+    issue_scaled<L>(coeffs, qidx, num_mcus, blockIdx.x, 0, false);
+    int j = 0;
+    for (long long t = blockIdx.x; t < tiles; t += step, ++j) {
+      walk_scaled_tile<T, H, V, NC, N, VEC16>(coeffs, qidx, qpool, num_q,
+                                              out, num_mcus, t, j);
+    }
+  } else {
+    const long long m0 = static_cast<long long>(blockIdx.x) * TILE_MCUS;
+    load_scaled_tile<L>(coeffs, qidx, num_q, m0, tile_valid(m0, num_mcus),
+                        smem);
+    decode_scaled_tile<T, H, V, NC, N, VEC16>(qpool, out, num_mcus,
+                                              blockIdx.x, 0, [] {}, [] {});
+  }
+}
+
 struct Args {
   const void* coeffs;
   const int32_t* qidx;
@@ -612,6 +793,7 @@ struct Args {
   long long num_mcus;
   cudaStream_t stream;
   bool vec16;   // every output row 16-byte aligned: the tile kernels' stores
+  long long blocks;   // rgb_scaled_kernel's grid (0: a block a tile)
 };
 
 template <typename T>
@@ -619,11 +801,13 @@ using KernelFn = void (*)(const T*, const int32_t*, const int32_t*, int,
                           uint8_t*, long long);
 
 // The tile kernel of one decode form (N == 8: ycbcr_kernel or rgb_kernel;
-// else rgb_scaled_kernel at N points) and its dynamic shared memory,
-// prepared once per instantiation and device.
+// else rgb_scaled_kernel at N points), its dynamic shared memory, and
+// whether its blocks may walk several tiles, prepared once per
+// instantiation and device.
 template <typename T, int H, int V, int NC, bool YCBCR, int N, bool VEC16>
-cudaError_t kernel_of(KernelFn<T>& fn, int& smem) {
+cudaError_t kernel_of(KernelFn<T>& fn, int& smem, bool& walks) {
   constexpr int G = NC == 1 ? 1 : H * V + 2;
+  walks = false;
   if constexpr (N == 8 && YCBCR) {
     fn = ycbcr_kernel<T, G, VEC16>;
     smem = TileLayout<T, G>::kBytes;
@@ -631,8 +815,10 @@ cudaError_t kernel_of(KernelFn<T>& fn, int& smem) {
     fn = rgb_kernel<T, H, V, NC, VEC16>;
     smem = TileLayout<T, G>::kBytes;
   } else {
+    using L = ScaledLayout<T, H, V, NC, N>;
     fn = rgb_scaled_kernel<T, H, V, NC, N, VEC16>;
-    smem = ScaledLayout<T, H, V, NC, N>::kBytes;
+    smem = L::kBytes;
+    walks = L::kWalks;
   }
   static PerDevice prepared;
   return prepared.get(
@@ -644,12 +830,12 @@ cudaError_t kernel_of(KernelFn<T>& fn, int& smem) {
 // stores (vec16) or the byte stores.
 template <typename T, int H, int V, int NC>
 cudaError_t pick_kernel(bool ycbcr, int scale, bool vec16, KernelFn<T>& fn,
-                        int& smem) {
+                        int& smem, bool& walks) {
   const auto pick = [&](auto ycbcr_c, auto n) {
     constexpr bool Y = decltype(ycbcr_c)::value;
     constexpr int N = decltype(n)::value;
-    return vec16 ? kernel_of<T, H, V, NC, Y, N, true>(fn, smem)
-                 : kernel_of<T, H, V, NC, Y, N, false>(fn, smem);
+    return vec16 ? kernel_of<T, H, V, NC, Y, N, true>(fn, smem, walks)
+                 : kernel_of<T, H, V, NC, Y, N, false>(fn, smem, walks);
   };
   using std::integral_constant;
   if (scale == 1) {
@@ -667,10 +853,21 @@ template <typename T, int H, int V, int NC>
 int launch(const Args& a, bool ycbcr, int scale) {
   KernelFn<T> kernel;
   int smem;
+  bool walks;
   const cudaError_t e =
-      pick_kernel<T, H, V, NC>(ycbcr, scale, a.vec16, kernel, smem);
+      pick_kernel<T, H, V, NC>(ycbcr, scale, a.vec16, kernel, smem, walks);
   if (e != cudaSuccess) return e;
-  kernel<<<grid(a.num_mcus, TILE_MCUS), TILE_THREADS, smem, a.stream>>>(
+  const unsigned tiles = grid(a.num_mcus, TILE_MCUS);
+  unsigned blocks = tiles;
+  if (scale != 1) {
+    // The wrapper's plan (ops/decode_kernel.scaled_plan): a block a tile,
+    // or, where the form walks, fewer blocks that walk several tiles.
+    if (a.blocks < 1 || a.blocks > tiles || (a.blocks < tiles && !walks)) {
+      return cudaErrorInvalidValue;
+    }
+    blocks = static_cast<unsigned>(a.blocks);
+  }
+  kernel<<<blocks, TILE_THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.coeffs), a.qidx, a.qpool, a.num_q, a.out,
       a.num_mcus);
   return cudaGetLastError();
@@ -702,19 +899,51 @@ int dispatch_wire(int wire_bytes, F f) {
 
 int decode(const void* coeffs, int wire_bytes, const void* qidx,
            const void* qpool, int num_q, void* out, long long num_mcus,
-           int h, int v, int ncomp, void* stream, bool ycbcr, int scale) {
+           int h, int v, int ncomp, void* stream, bool ycbcr, int scale,
+           long long blocks = 0) {
   if (num_mcus <= 0 || num_q <= 0) return cudaErrorInvalidValue;
   const Args a{coeffs, static_cast<const int32_t*>(qidx),
                static_cast<const int32_t*>(qpool), num_q,
                static_cast<uint8_t*>(out), num_mcus,
                static_cast<cudaStream_t>(stream),
                num_mcus % VEC == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % VEC == 0};
+                   reinterpret_cast<uintptr_t>(out) % VEC == 0,
+               blocks};
   return dispatch_wire(wire_bytes, [&](auto wire) {
     using T = decltype(wire);
     return dispatch_mode(h, v, ncomp, [&](auto mode) {
       using M = decltype(mode);
       return launch<T, M::h, M::v, M::nc>(a, ycbcr, scale);
+    });
+  });
+}
+
+// The blocks of the scaled kernel that the current device holds at once,
+// on every SM, where its form walks tiles; 0 where it does not.
+int scaled_resident(int wire_bytes, int h, int v, int ncomp, int scale,
+                    bool vec16, int* resident) {
+  if (scale == 1) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (e != cudaSuccess) return e;
+  return dispatch_wire(wire_bytes, [&](auto wire) {
+    using T = decltype(wire);
+    return dispatch_mode(h, v, ncomp, [&](auto mode) {
+      using M = decltype(mode);
+      KernelFn<T> fn;
+      int smem, per_sm = 0;
+      bool walks;
+      cudaError_t err = pick_kernel<T, M::h, M::v, M::nc>(
+          false, scale, vec16, fn, smem, walks);
+      if (err == cudaSuccess && walks) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fn, TILE_THREADS, smem);
+      }
+      *resident = per_sm * sms;
+      return static_cast<int>(err);
     });
   });
 }
@@ -739,13 +968,25 @@ extern "C" int pjt_cuda_decode_ycbcr(const void* coeffs, int wire_bytes,
                 ncomp, stream, true, 1);
 }
 
-// Scaled decode, scale 2, 4 or 8: output [3, luma_slots, (8/scale)^2, M].
+// Scaled decode, scale 2, 4 or 8: output [3, luma_slots, (8/scale)^2, M],
+// on `blocks` CUDA blocks (1 to ceil(M / 32); below that each walks
+// several tiles, see ops/decode_kernel.scaled_plan).
 extern "C" int pjt_cuda_decode_rgb_scaled(const void* coeffs, int wire_bytes,
                                           const void* qidx, const void* qpool,
                                           int num_q, void* out,
                                           long long num_mcus, int h, int v,
-                                          int ncomp, int scale, void* stream) {
+                                          int ncomp, int scale,
+                                          long long blocks, void* stream) {
   if (scale == 1) return cudaErrorInvalidValue;
   return decode(coeffs, wire_bytes, qidx, qpool, num_q, out, num_mcus, h, v,
-                ncomp, stream, false, scale);
+                ncomp, stream, false, scale, blocks);
+}
+
+// The scaled kernel's resident blocks on the current device (vec16: its
+// 16-byte store form) where that form walks tiles, else 0.
+extern "C" int pjt_cuda_rgb_scaled_resident(int wire_bytes, int h, int v,
+                                            int ncomp, int scale, int vec16,
+                                            int* resident) {
+  return scaled_resident(wire_bytes, h, v, ncomp, scale, vec16 != 0,
+                         resident);
 }

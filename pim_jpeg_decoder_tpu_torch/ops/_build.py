@@ -122,7 +122,9 @@ def load() -> ctypes.CDLL:
             for fn, argtypes in (
                     (lib.pjt_cuda_decode_rgb, decode + [ptr]),
                     (lib.pjt_cuda_decode_ycbcr, decode + [ptr]),
-                    (lib.pjt_cuda_decode_rgb_scaled, decode + [i32, ptr]),
+                    (lib.pjt_cuda_decode_rgb_scaled,
+                     decode + [i32, ctypes.c_int64, ptr]),
+                    (lib.pjt_cuda_rgb_scaled_resident, [i32] * 6 + [ptr]),
                     (lib.pjt_cuda_memfloor, decode + [ptr]),
                     (lib.pjt_cuda_decode_rgb_truerez, decode + [ptr]),
                     (lib.pjt_cuda_decode_rgb_stacked, decode + [ptr]),

@@ -46,9 +46,11 @@ from pim_jpeg_decoder_tpu_torch.ops.idct_math import idct_1d
 # "raster_shifted" those of its banded form that copy runs off the 16-byte
 # grid (:func:`raster_shifted`); "rgb_shifted" counts the "rgb" launches
 # whose output rows start off that grid, which take byte stores
-# (:func:`rgb_shifted`).
+# (:func:`rgb_shifted`); "rgb_scaled_looped" the "rgb_scaled" launches
+# whose blocks walk more than one tile (:func:`scaled_plan`).
 _counts: Dict[str, int] = {"rgb": 0, "rgb_shifted": 0, "ycbcr": 0,
-                           "rgb_scaled": 0, "raster": 0, "raster_rows": 0,
+                           "rgb_scaled": 0, "rgb_scaled_looped": 0,
+                           "raster": 0, "raster_rows": 0,
                            "raster_shifted": 0, "dequant": 0,
                            "idct": 0, "color": 0,
                            "memfloor": 0, "truerez": 0, "stacked": 0,
@@ -306,6 +308,41 @@ def padded_mcus(num_mcus: int) -> int:
     return num_mcus + -num_mcus % ROW_ALIGN
 
 
+def scaled_plan(num_mcus: int, resident: int) -> Tuple[int, int]:
+    """``(blocks, tiles a block)`` of a scaled decode launch of
+    ``num_mcus`` MCUs (tiles of ``TILE_MCUS``) whose kernel form the card
+    holds ``resident`` blocks of at once, or 0 where the form never walks
+    tiles (a tile copies less than ``WALK_MIN_COPY_BYTES``, see
+    ``csrc/decode_kernel.cu``).  While the tiles fit in one wave, or where
+    the form never walks, a block a tile; above it, every resident block,
+    block b walking the tiles b, b + blocks, ... (the kernel's loop): every
+    tile once, the last ragged, and each block ``ceil(tiles / blocks)``
+    tiles or one fewer, so that every SM gets the same share."""
+    tiles = -(-num_mcus // TILE_MCUS)
+    if tiles <= resident or resident < 1:
+        return tiles, 1
+    return resident, -(-tiles // resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_resident(device_index, wire_bytes: int, h: int, v: int,
+                     ncomp: int, scale: int, vec16: bool) -> int:
+    """``resident`` of :func:`scaled_plan` for one scaled kernel form on the
+    current device (``device_index`` keys the cache): the card's SMs times
+    the form's blocks an SM, or 0 where it never walks tiles."""
+    import ctypes
+
+    from pim_jpeg_decoder_tpu_torch.ops._build import load
+    resident = ctypes.c_int(0)
+    rc = load().pjt_cuda_rgb_scaled_resident(
+        wire_bytes, h, v, ncomp, scale, int(vec16), ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"occupancy of the scaled decode kernel (scale "
+                           f"{scale}, int{8 * wire_bytes}) failed: "
+                           f"cudaError {rc}")
+    return resident.value
+
+
 def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
             scale: int):
     from pim_jpeg_decoder_tpu_torch.ops._build import load
@@ -324,11 +361,17 @@ def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
     else:
         shape, fn, name = ((3, mode.luma_slots, (8 // scale) ** 2, m),
                            lib.pjt_cuda_decode_rgb_scaled, "rgb_scaled")
-        args = (scale,)
     out = torch.empty(shape, dtype=torch.uint8, device=coeffs.device)
     if m == 0:
         return out
+    per = 1
     with torch.cuda.device(coeffs.device):
+        if name == "rgb_scaled":
+            blocks, per = scaled_plan(m, _scaled_resident(
+                coeffs.device.index, coeffs.element_size(), mode.h,
+                mode.v, mode.ncomp, scale,
+                not rgb_shifted(out.data_ptr(), m)))
+            args = (scale, blocks)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(coeffs.data_ptr(), coeffs.element_size(), qidx.data_ptr(),
                 qpool.data_ptr(), qpool.shape[0], out.data_ptr(), m,
@@ -340,6 +383,8 @@ def _launch(coeffs, qidx, qpool, mode: S.ModeSpec, ycbcr: bool,
     _count(name)
     if name == "rgb" and rgb_shifted(out.data_ptr(), m):
         _count("rgb_shifted")
+    if per > 1:
+        _count("rgb_scaled_looped")
     return out
 
 

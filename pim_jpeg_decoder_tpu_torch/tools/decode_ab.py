@@ -41,7 +41,10 @@ the IDCT and colour stages (``IDCT_GEOMETRIES``, ``COLOR_GEOMETRIES``) at
 output, the colour stage on the IDCT stage's, of the same seeded inputs;
 the scaled decode (``SCALED_GEOMETRIES``: 4:2:0 scale 2 at M=16,384 and
 196,608 on both wires, scale 4 and 8 at 196,608 int8, gray and 4:4:4
-scale 2 at 16,384 int8); the stacked and truerez kernels
+scale 2 at 16,384 int8, then 4:2:0 scale 2 at the half-scale cell's
+M=262,144 on both wires and at M=131,091 int16, whose blocks walk several
+tiles and whose last tile holds 19 MCUs, and 4:4:0 and 4:2:2 scale 2 at
+196,608 int16, the one walking and the other not); the stacked and truerez kernels
 (``STACKED_GEOMETRIES``, ``TRUEREZ_GEOMETRIES``: 4:2:0 at M=16,384 on both
 wires and 196,608 int16), whose lines end with ``rgb_kernel``'s time on the
 same geometry from the same runs; the tensor-core IDCT (``MXU_GEOMETRIES``:
@@ -146,7 +149,10 @@ SCALED_GEOMETRIES: Tuple[Tuple[tuple, int, int, int], ...] = (
     ((2, 2, 3), 2, 16384, 1), ((2, 2, 3), 2, 16384, 2),
     ((2, 2, 3), 2, 196608, 1), ((2, 2, 3), 2, 196608, 2),
     ((2, 2, 3), 4, 196608, 1), ((2, 2, 3), 8, 196608, 1),
-    ((1, 1, 1), 2, 16384, 1), ((1, 1, 3), 2, 16384, 1))
+    ((1, 1, 1), 2, 16384, 1), ((1, 1, 3), 2, 16384, 1),
+    ((2, 2, 3), 2, 262144, 1), ((2, 2, 3), 2, 262144, 2),
+    ((2, 2, 3), 2, 131091, 2), ((1, 2, 3), 2, 196608, 2),
+    ((2, 1, 3), 2, 196608, 2))
 # (M, wire bytes) of the stacked kernel at 4:2:0
 STACKED_GEOMETRIES: Tuple[Tuple[int, int], ...] = (
     (16384, 1), (16384, 2), (196608, 2))

@@ -33,7 +33,7 @@ def test_geometries_cover_every_mode_and_both_wires():
 
 def test_epilogue_and_dequantize_geometries_are_named():
     names = A.geometry_names()
-    assert len(names) == len(set(names)) == (16 + 8 + 2 + 4 + 4 + 4 + 8
+    assert len(names) == len(set(names)) == (16 + 8 + 2 + 4 + 4 + 4 + 13
                                              + 3 + 3 + 6 + 3 + 1)
     assert names[:16] == [A.geometry_name(k, S.mode_for(key).name, m, w)
                           for k, key, m, w in A.GEOMETRIES]
@@ -136,6 +136,11 @@ def _named_runs(us_by_name, digests=None):
     "color 4:2:0 M=16384 int16", "color 4:2:0 M=196608 int16",
     "rgb_scaled scale 2 4:2:0 M=16384 int8",
     "rgb_scaled scale 8 4:2:0 M=196608 int8",
+    "rgb_scaled scale 2 4:2:0 M=262144 int8",
+    "rgb_scaled scale 2 4:2:0 M=262144 int16",
+    "rgb_scaled scale 2 4:2:0 M=131091 int16",
+    "rgb_scaled scale 2 4:4:0 M=196608 int16",
+    "rgb_scaled scale 2 4:2:2 M=196608 int16",
     "stacked 4:2:0 M=16384 int8", "stacked 4:2:0 M=196608 int16",
     "truerez 4:2:0 M=16384 int8", "truerez 4:2:0 M=196608 int16",
     "mxu2pass 4:2:0 M=16384 int16", "mxu2pass4 4:2:0 M=16384 int16",
@@ -213,18 +218,21 @@ def test_crop_origins_fit_the_scaled_image(scale):
 
 
 def test_scaled_and_stacked_geometries_are_named_and_last():
-    """The scaled decode at 4:2:0 scale 2 on both wires at M=16,384 and
-    196,608, scale 4 and 8 at 196,608 int8, gray and 4:4:4 scale 2 at
-    16,384 int8; the stacked kernel at 4:2:0, M=16,384 on both wires and
-    196,608 int16, each with rgb_kernel's geometry of the same M and wire
-    in the table.  They were last until the truerez, tensor-core IDCT and
-    memory-floor geometries were appended after them."""
+    """The scaled decode at 4:2:0 scale 2 on both wires at M=16,384,
+    196,608 and the half-scale cell's 262,144, and at 131,091 int16 (blocks
+    that walk several tiles, the last ragged), scale 4 and 8 at 196,608
+    int8, gray and 4:4:4 scale 2 at 16,384 int8, 4:4:0 and 4:2:2 scale 2
+    at 196,608 int16 (walked, and not); the stacked kernel at
+    4:2:0, M=16,384 on both wires and 196,608 int16, each with rgb_kernel's
+    geometry of the same M and wire in the table.  They were last until the
+    truerez, tensor-core IDCT and memory-floor geometries were appended
+    after them."""
     names = A.geometry_names()
     scaled = [A.scaled_name(*g) for g in A.SCALED_GEOMETRIES]
     stacked = [A.stacked_name(m, w) for m, w in A.STACKED_GEOMETRIES]
     start = 16 + 8 + 2 + 4 + 4 + 4
-    assert names[start:start + 11] == scaled + stacked
-    assert names[start + 11:] == (
+    assert names[start:start + 16] == scaled + stacked
+    assert names[start + 16:] == (
         [A.truerez_name(m, w) for m, w in A.TRUEREZ_GEOMETRIES]
         + [A.mxu_name(v, m) for v, m in A.MXU_GEOMETRIES]
         + [A.memfloor_name(m, w) for m, w in A.MEMFLOOR_GEOMETRIES]
@@ -232,7 +240,10 @@ def test_scaled_and_stacked_geometries_are_named_and_last():
     want = {("4:2:0", 2, 16384, 8), ("4:2:0", 2, 16384, 16),
             ("4:2:0", 2, 196608, 8), ("4:2:0", 2, 196608, 16),
             ("4:2:0", 4, 196608, 8), ("4:2:0", 8, 196608, 8),
-            ("gray", 2, 16384, 8), ("4:4:4", 2, 16384, 8)}
+            ("gray", 2, 16384, 8), ("4:4:4", 2, 16384, 8),
+            ("4:2:0", 2, 262144, 8), ("4:2:0", 2, 262144, 16),
+            ("4:2:0", 2, 131091, 16), ("4:4:0", 2, 196608, 16),
+            ("4:2:2", 2, 196608, 16)}
     assert {(S.mode_for(k).name, s, m, 8 * w)
             for k, s, m, w in A.SCALED_GEOMETRIES} == want
     assert A.scaled_name((2, 2, 3), 2, 16384, 1) == (

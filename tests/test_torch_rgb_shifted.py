@@ -73,10 +73,16 @@ def test_the_rule_is_the_launchers():
 
 
 class _Lib:
-    """Stands in for the CUDA library: every launch succeeds."""
+    """Stands in for the CUDA library: every launch succeeds, and a card
+    holds every scaled launch's blocks in one wave."""
 
     def __getattr__(self, name):
         return lambda *args: 0
+
+    @staticmethod
+    def pjt_cuda_rgb_scaled_resident(*args):
+        args[-1]._obj.value = 1 << 20
+        return 0
 
 
 @pytest.fixture
